@@ -1,0 +1,47 @@
+"""The recommender-model contract as an ``nn.Module``.
+
+Counterpart of ``RecModel`` in ``beta_recsys_tpu/models/base.py``. There a
+model is a family of pure functions over an explicit params tree; here the
+module holds its parameters, and the scoring methods take only ids. Every
+scoring method runs without autograd bookkeeping when called under
+``torch.no_grad()``, as the serving paths do.
+"""
+
+import torch
+from torch import nn
+
+
+class RecModel(nn.Module):
+    """Static hyperparameters + parameters + the scoring contract."""
+
+    def __init__(self, config, n_users, n_items, artifacts=None, device=None):
+        """``config`` is the model section (mapping); ``artifacts`` carries
+        derived data (e.g. sequence contexts) explicitly, never through the
+        config. Parameters are created on ``device``."""
+        super().__init__()
+        self.config = config
+        self.n_users = n_users
+        self.n_items = n_items
+        self.artifacts = artifacts or {}
+        self.device = torch.device(device or "cpu")
+        self.emb_dim = int(config.get("emb_dim", 64))
+        self.stddev = float(config.get("stddev", 0.1))
+
+    def retrieval_score_transform(self, scores):
+        """Map raw factorized retrieval scores onto ``score_pairs``' scale.
+        Identity unless a model's ``score_pairs`` adds a nonlinearity."""
+        return scores
+
+    def score_pairs(self, users, items):
+        """Score aligned (user, item) pairs -> (...,) float scores."""
+        raise NotImplementedError
+
+    def score_candidates(self, users, cand_items):
+        """Score per-user candidate sets: users (U,), cand_items (U, C) -> (U, C)."""
+        users_b = users[:, None].expand(cand_items.shape)
+        return self.score_pairs(users_b, cand_items)
+
+    def score_all(self, users):
+        """Full-catalog scores: users (U,) -> (U, n_items)."""
+        cand = torch.arange(self.n_items, device=users.device)
+        return self.score_candidates(users, cand[None, :].expand(users.shape[0], -1))

@@ -1,0 +1,125 @@
+"""SASRec: causal self-attention over item sequences (serving).
+
+Counterpart of ``beta_recsys_tpu/models/sasrec.py``: an item table with
+padding row 0 (n_items + 1 rows) scaled by sqrt(d), learned position
+embeddings, ``num_blocks`` of [LN on the query -> causal MHA, residual from
+the normalized query -> LN -> pointwise FFN] with timeline masking, and a final
+LN. Candidate scoring reads each user's context row (``artifacts["ctx"]``,
+1-indexed items, left-padded); dense 0-indexed candidate ids are shifted +1.
+
+Parameter names and layouts follow the JAX params tree: ``item_emb``,
+``pos_emb``, ``blocks.<i>.{attn_ln,attn,ffn_ln,ffn}.*`` and ``last_ln.*``,
+with projection weights as (in, out) (``convert.py``).
+"""
+
+import copy
+import math
+
+import torch
+from torch import nn
+
+from ..ops.attention import causal_mha, layer_norm, pointwise_ffn
+from .base import RecModel
+
+
+def _params(device, **shapes):
+    return nn.ParameterDict(
+        {name: nn.Parameter(torch.empty(shape, device=device)) for name, shape in shapes.items()}
+    )
+
+
+class SASRec(RecModel):
+    def __init__(self, config, n_users, n_items, artifacts=None, device=None):
+        super().__init__(config, n_users, n_items, artifacts, device)
+        self.maxlen = int(config.get("maxlen", 200))
+        self.num_blocks = int(config.get("num_blocks", 2))
+        self.num_heads = int(config.get("num_heads", 2))
+        # "auto"/True: the flash kernel on CUDA tensors, its plain version on CPU
+        # tensors; False: the plain version on either.
+        self.fused_attention = config.get("fused_attention", "auto")
+        d, dev = self.emb_dim, self.device
+        self.item_emb = nn.Parameter(torch.empty(n_items + 1, d, device=dev))
+        self.pos_emb = nn.Parameter(torch.empty(self.maxlen, d, device=dev))
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict(
+                {
+                    "attn_ln": _params(dev, scale=(d,), bias=(d,)),
+                    "attn": _params(dev, wq=(d, d), wk=(d, d), wv=(d, d), wo=(d, d)),
+                    "ffn_ln": _params(dev, scale=(d,), bias=(d,)),
+                    "ffn": _params(dev, w1=(d, d), b1=(d,), w2=(d, d), b2=(d,)),
+                }
+            )
+            for _ in range(self.num_blocks)
+        )
+        self.last_ln = _params(dev, scale=(d,), bias=(d,))
+        ctx = self.artifacts.get("ctx")
+        self.ctx = None if ctx is None else torch.as_tensor(ctx, device=dev)
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """The reference initializer, drawn from a CPU ``torch.Generator``:
+        normal(0, stddev) embeddings with a zero padding row, Xavier-uniform
+        projections, zero biases and unit LN scales."""
+
+        def draw(p, fn):
+            host = torch.empty(p.shape)
+            fn(host)
+            p.copy_(host)
+
+        draw(self.item_emb, lambda t: t.normal_(0.0, self.stddev, generator=generator))
+        self.item_emb[0] = 0.0
+        draw(self.pos_emb, lambda t: t.normal_(0.0, self.stddev, generator=generator))
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("w"):
+                draw(p, lambda t: nn.init.xavier_uniform_(t, generator=generator))
+            elif leaf.startswith("b"):
+                p.zero_()
+            elif leaf == "scale":
+                p.fill_(1.0)
+        return self
+
+    def with_context(self, ctx):
+        """A light copy (sharing the parameters) that scores against another
+        per-user context matrix, e.g. train+valid for the final test."""
+        clone = copy.copy(self)
+        clone.ctx = torch.as_tensor(ctx, device=self.item_emb.device)
+        return clone
+
+    def log2feats(self, log_seqs):
+        """Encode (B, T) 1-indexed item sequences -> (B, T, D) features."""
+        T = log_seqs.shape[1]
+        seqs = self.item_emb[log_seqs] * math.sqrt(self.emb_dim)
+        seqs = seqs + self.pos_emb[None, self.maxlen - T:, :]
+        timeline = (log_seqs != 0)[..., None].to(seqs.dtype)
+        seqs = seqs * timeline
+        for blk in self.blocks:
+            ln, attn = blk["attn_ln"], blk["attn"]
+            q = layer_norm(seqs, ln["scale"], ln["bias"])
+            attn_out = causal_mha(
+                q, seqs, seqs, self.num_heads,
+                attn["wq"], attn["wk"], attn["wv"], attn["wo"],
+                fused=self.fused_attention,
+            )
+            seqs = q + attn_out
+            seqs = layer_norm(seqs, blk["ffn_ln"]["scale"], blk["ffn_ln"]["bias"])
+            seqs = pointwise_ffn(seqs, blk["ffn"]) * timeline
+        return layer_norm(seqs, self.last_ln["scale"], self.last_ln["bias"])
+
+    def _final_feats(self, users):
+        if self.ctx is None:
+            raise ValueError("SASRec needs artifacts['ctx'] for scoring")
+        return self.log2feats(self.ctx[users])[:, -1, :]
+
+    def score_candidates(self, users, cand_items):
+        """(U,), (U, C) dense 0-indexed candidates -> (U, C) logits."""
+        final = self._final_feats(users)
+        return torch.einsum("ud,ucd->uc", final, self.item_emb[cand_items + 1])
+
+    def score_all(self, users):
+        return self._final_feats(users) @ self.item_emb[1:].T
+
+    def score_pairs(self, users, items):
+        """Per-pair scores against each user's context (Recommender.predict)."""
+        final = self._final_feats(users)
+        return (final * self.item_emb[items + 1]).sum(dim=-1)

@@ -1,0 +1,31 @@
+"""User-facing recommender wrappers, one per model family.
+
+Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; only SASRec is
+ported so far.
+"""
+
+from ..convert import sasrec_params_from_jax
+from ..core.recommender import Recommender
+from ..data.sequential_data import SequentialData
+
+
+class SASRec(Recommender):
+    """SASRec sequential recommender.
+
+    Scoring reads each user's train sequence as context; the final test and
+    recommend() extend it with the user's validation items (test_model()).
+    """
+
+    model_name = "SASRec"
+    data_class = SequentialData
+    params_from_jax = staticmethod(sasrec_params_from_jax)
+
+    def _maxlen(self):
+        return int(self.config.model.get("maxlen", 200))
+
+    def build_artifacts(self, data):
+        return {"ctx": data.eval_context(self._maxlen())}
+
+    def test_model(self):
+        test_ctx = self.data.eval_context(self._maxlen(), extra_df=self.data.valid[0])
+        return self.model.with_context(test_ctx)

@@ -1,0 +1,76 @@
+"""chip_smoke.py's helpers, and its refusal to report without a card."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from beta_recsys_tpu_torch.utils.constants import (
+    DEFAULT_ITEM_COL,
+    DEFAULT_PREDICTION_COL,
+    DEFAULT_RATING_COL,
+    DEFAULT_TIMESTAMP_COL,
+    DEFAULT_USER_COL,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_ml1m_shaped_split_is_leave_one_out():
+    n_users, n_items, total = 40, 120, 2000
+    train, (valid,), (test,) = chip_smoke.ml1m_shaped_split(
+        1, n_users=n_users, n_items=n_items, n_interactions=total, max_per_user=90, n_negative=10
+    )
+    assert len(train[DEFAULT_USER_COL]) + 2 * n_users == total
+    seen = set(zip(train[DEFAULT_USER_COL].tolist(), train[DEFAULT_ITEM_COL].tolist()))
+    assert len(seen) == len(train[DEFAULT_USER_COL])  # no repeated (user, item)
+    last_train = {}
+    for u, t in zip(train[DEFAULT_USER_COL].tolist(), train[DEFAULT_TIMESTAMP_COL].tolist()):
+        last_train[u] = max(last_train.get(u, t), t)
+    for frame in (valid, test):
+        pos = frame[DEFAULT_RATING_COL] == 1
+        assert sorted(frame[DEFAULT_USER_COL][pos].tolist()) == list(range(1, n_users + 1))
+        assert ((~pos).sum()) == 10 * n_users
+        for u, i in zip(frame[DEFAULT_USER_COL][~pos].tolist(), frame[DEFAULT_ITEM_COL][~pos].tolist()):
+            assert (u, i) not in seen
+        for u, t in zip(frame[DEFAULT_USER_COL][pos].tolist(), frame[DEFAULT_TIMESTAMP_COL][pos].tolist()):
+            assert t >= last_train[u]  # the held-out positives are the newest
+    counts = np.bincount(train[DEFAULT_USER_COL])[1:] + 2
+    assert counts.min() >= 20 and counts.max() <= 90
+
+
+def test_attention_bound():
+    ms, by = chip_smoke.attention_bound(1886, 100, 32, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(1886 * 100 * (4 * 32 * 4 + 4) / 3.35e12 * 1e3)
+    ms, by = chip_smoke.attention_bound(12080, 200, 32, torch.float32)
+    assert by == "operations" and ms == pytest.approx(4 * 32 * 12080 * 200 * 201 / 2 / 67e12 * 1e3)
+
+
+def _recs(items, scores):
+    items, scores = np.asarray(items), np.asarray(scores, dtype=np.float32)
+    return {DEFAULT_ITEM_COL: items.reshape(-1), DEFAULT_PREDICTION_COL: scores.reshape(-1)}
+
+
+def test_same_top_k_allows_only_near_ties():
+    ref = _recs([[1, 2, 3]], [[3.0, 2.0, 2.0]])
+    assert chip_smoke.same_top_k(ref, ref, 3) == 0
+    assert chip_smoke.same_top_k(_recs([[1, 3, 2]], [[3.0, 2.0, 2.0]]), ref, 3) == 1
+    with pytest.raises(SystemExit):
+        chip_smoke.same_top_k(_recs([[2, 1, 3]], [[3.0, 3.0, 2.0]]), _recs([[1, 2, 3]], [[3.0, 2.5, 2.0]]), 3)
+
+
+def test_refuses_outside_the_repo_and_without_cuda(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), lone)
+    runs = [(str(lone), tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append((os.path.join(REPO, "chip_smoke.py"), REPO))
+    for script, cwd in runs:
+        out = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=120, cwd=cwd)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout

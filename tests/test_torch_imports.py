@@ -1,0 +1,52 @@
+"""The port imports with JAX, its companions, pandas and the JAX package all
+blocked, and defaults to the GPU without a silent CPU fallback."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "tqdm", "msgpack", "beta_recsys_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+sys.path.insert(0, {REPO!r})
+import beta_recsys_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(beta_recsys_tpu_torch.__path__, "beta_recsys_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+chip_smoke.ml1m_shaped_split(0, n_users=30, n_items=60, n_interactions=900, max_per_user=50, n_negative=5)
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax_pandas_or_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120, cwd=REPO
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was reached
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from beta_recsys_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_recommender_defaults_to_cuda(monkeypatch):
+    from beta_recsys_tpu_torch.recommenders import SASRec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SASRec({"model": {"model": "SASRec"}})
+    assert SASRec({"model": {"model": "SASRec"}}, device="cpu").device == torch.device("cpu")
