@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters across to the port.
+"""Carry parameters between the JAX package's params trees and the port's
+``state_dict``s, either way.
 
 ``sasrec_params_from_jax`` turns a SASRec params tree of
 ``beta_recsys_tpu/models/sasrec.py`` (``init_params``, or ``raw["params"]``
@@ -7,6 +8,11 @@ layout: projection weights stay (in, out) and are applied as ``x @ w``, so
 nothing is transposed; ``item_emb`` keeps its padding row 0. The
 ``blocks`` list may come as a list (``init_params``) or as a dict keyed
 "0", "1", ... (a checkpoint's msgpack tree).
+
+``mf_params_from_jax`` does the same for MF (``beta_recsys_tpu/models/mf.py``:
+``user_emb``, ``item_emb``, ``user_bias``, ``item_bias``, 0-d
+``global_bias``), and ``params_to_jax`` is the inverse of both: the tree the
+JAX package's ``from_state_dict`` restores, as float32 numpy arrays.
 """
 
 import numpy as np
@@ -27,3 +33,22 @@ def _flatten(tree, prefix=""):
 def sasrec_params_from_jax(params):
     """{dotted name: float32 tensor} for ``SASRec.load_state_dict``."""
     return _flatten(params)
+
+
+def mf_params_from_jax(params):
+    """{name: float32 tensor} for ``MF.load_state_dict``."""
+    return _flatten(params)
+
+
+def params_to_jax(state_dict):
+    """A port ``state_dict`` as the JAX params tree: dotted names nest as
+    dicts (a list of blocks comes out keyed "0", "1", ..., as a checkpoint
+    stores it)."""
+    tree = {}
+    for name, value in state_dict.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value.detach().cpu().numpy().astype(np.float32, copy=False)
+    return tree

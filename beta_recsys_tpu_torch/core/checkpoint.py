@@ -1,4 +1,4 @@
-"""Reading the JAX package's checkpoints without flax or msgpack.
+"""Reading and writing the JAX package's checkpoints without flax or msgpack.
 
 A checkpoint directory holds ``metadata.json`` and ``checkpoint.msgpack``,
 the state tree written by ``flax.serialization.to_bytes``
@@ -10,6 +10,10 @@ arrays become lists, and flax's extension types become numpy values:
 - ext code 1: an ndarray, whose payload is itself msgpack
   ``(shape, dtype name, C-order bytes)``;
 - ext code 3: a numpy scalar, packed the same way as a 0-d array.
+
+``msgpack_serialize`` writes a tree of dicts, lists, numbers, strings and
+numpy arrays as ``flax.serialization.msgpack_serialize`` does (arrays as ext
+code 1), so the JAX package reads what the port writes.
 """
 
 import json
@@ -20,6 +24,21 @@ import numpy as np
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+
+
+def save_checkpoint(ckpt_dir, state, name="checkpoint.msgpack"):
+    """Write a tree of dicts and numpy arrays as ``checkpoint.msgpack``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, name)
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(state))
+    return path
+
+
+def save_metadata(ckpt_dir, metadata, name="metadata.json"):
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, name), "w") as f:
+        json.dump(metadata, f, indent=2)
 
 
 def load_metadata(ckpt_dir, name="metadata.json"):
@@ -38,6 +57,67 @@ def msgpack_restore(data):
     if end != len(data):
         raise ValueError(f"{len(data) - end} trailing bytes after the msgpack object")
     return value
+
+
+def msgpack_serialize(tree):
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+def _header(out, n, fix_base, fix_max, sized):
+    """A length header: the fix form below ``fix_max``, else the smallest of
+    ``sized`` ((type byte, struct format, limit), ...) that holds ``n``."""
+    if fix_base is not None and n < fix_max:
+        out.append(fix_base | n)
+        return
+    for byte, fmt, limit in sized:
+        if n < limit:
+            out.append(byte)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"length {n} is too large for msgpack")
+
+
+def _pack(obj, out):
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            out += b"\xcf" + struct.pack(">Q", obj)
+        else:
+            out += b"\xd3" + struct.pack(">q", obj)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _header(out, len(data), 0xA0, 32, ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16), (0xDB, ">I", 1 << 32)))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _header(out, len(obj), None, 0, ((0xC4, ">B", 1 << 8), (0xC5, ">H", 1 << 16), (0xC6, ">I", 1 << 32)))
+        out += obj
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32)))
+        for value in obj:
+            _pack(value, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        payload = bytearray()
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], payload)
+        _header(out, len(payload), None, 0, ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16), (0xC9, ">I", 1 << 32)))
+        out += struct.pack(">b", _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR)
+        out += payload
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
 
 
 class _Reader:

@@ -1,6 +1,7 @@
-"""Ranked evaluation over fixed candidate sets, and the final-test record.
+"""Ranked evaluation over fixed candidate sets, early-stop bookkeeping and
+the final-test record.
 
-Counterpart of ``RankingEvaluator`` and ``test_eval`` in
+Counterpart of ``RankingEvaluator``, ``EvalBookkeeper`` and ``test_eval`` in
 ``beta_recsys_tpu/core/eval_engine.py``: one call scores every user's
 candidate set and reduces every metric@k on the model's device; the metric
 values reach the host in one transfer.
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.metrics import ranking_metrics
+from ..utils.constants import MAX_N_UPDATE
 
 
 class RankingEvaluator:
@@ -36,6 +38,35 @@ class RankingEvaluator:
         out = ranking_metrics(scores, self.relevance, self.mask, self.metrics, self.ks)
         values = torch.stack(list(out.values())).cpu().tolist()
         return dict(zip(out, values))
+
+
+class EvalBookkeeper:
+    """Best valid metric and early stop: training stops after
+    ``max_n_update`` epochs in a row without a strict improvement."""
+
+    def __init__(self, valid_metric="ndcg", valid_k=10, max_n_update=MAX_N_UPDATE):
+        self.key = f"{valid_metric}@{valid_k}"
+        self.max_n_update = max_n_update
+        self.best_valid_performance = 0.0
+        self.best_epoch = -1
+        self.n_no_update = 0
+        self.history = []
+
+    def update(self, epoch, valid_result, test_result=None):
+        """Record an epoch's results; returns True if the valid metric improved."""
+        score = valid_result[self.key]
+        self.history.append({"epoch": epoch, "valid": dict(valid_result), "test": dict(test_result or {})})
+        if score > self.best_valid_performance:
+            self.best_valid_performance = score
+            self.best_epoch = epoch
+            self.n_no_update = 0
+            return True
+        self.n_no_update += 1
+        return False
+
+    @property
+    def should_stop(self):
+        return self.n_no_update >= self.max_n_update
 
 
 def test_eval(evaluators, result_file=None, result_para=None, run_time=None):

@@ -1,10 +1,12 @@
-"""User-facing serving API: Model(config).load(dir, data) -> test() /
-predict() / recommend().
+"""User-facing API: Model(config).train(data) or .load(dir, data), then
+test() / predict() / recommend().
 
-Counterpart of ``Recommender`` in ``beta_recsys_tpu/core/recommender.py``
-(the serving half; training comes with a later slice). It runs on the GPU
-unless ``device="cpu"`` is passed. A frame is a dict of numpy columns
-(``datasets/split_io.py``); ``recommend`` returns such a dict.
+Counterpart of ``Recommender`` in ``beta_recsys_tpu/core/recommender.py``.
+It runs on the GPU unless ``device="cpu"`` is passed. After ``train`` the
+model holds the best checkpoint's parameters, the model ``test()`` reports,
+as the JAX package serves ``_serving_params(use_best=True)``. A frame is a
+dict of numpy columns (``datasets/split_io.py``); ``recommend`` returns such
+a dict.
 """
 
 import os
@@ -20,6 +22,7 @@ from ..ops.topk import topk_lowest_index
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_PREDICTION_COL, DEFAULT_USER_COL
 from .checkpoint import load_metadata, load_raw_checkpoint
 from .eval_engine import RankingEvaluator, test_eval
+from .train_engine import TrainEngine
 
 
 class Recommender:
@@ -38,6 +41,8 @@ class Recommender:
         fp32_matmuls()
         self.model = None
         self.data = None
+        self.engine = None
+        self.run_time = None
 
     # -- hooks ---------------------------------------------------------------------
 
@@ -72,6 +77,23 @@ class Recommender:
         self.model.eval()
         return self
 
+    def train(self, data):
+        """Train on ``data`` (a ``BaseData``); returns {"valid_metric",
+        "best_epoch", "model_save_dir", "run_time"}. Validation runs on the
+        first validation copy every epoch."""
+        self.data = data
+        self.model = self._build_model(data.n_users, data.n_items)
+        self.engine = TrainEngine(self.config, self.device)
+        valid_cand = data.eval_candidates(data.valid[0]) if data.valid else None
+        test_cand = data.eval_candidates(data.test[0]) if data.test else None
+        self.engine.build(self.model, data, valid_cand, test_cand)
+        result = self.engine.train()
+        self.run_time = result["run_time"]
+        if self.engine.has_checkpoint("best"):
+            self.model.load_state_dict(self.params_from_jax(self.engine.load_params()))
+        self.model.eval()
+        return result
+
     def load(self, model_dir, data=None):
         """Build the model from a JAX checkpoint directory: n_users/n_items
         from ``metadata.json``, parameters from ``raw["params"]`` of
@@ -99,7 +121,7 @@ class Recommender:
         given frame(s)); appends the mean row to the config's result CSV under
         ``system.root_dir``."""
         if self.model is None or self.data is None:
-            raise ValueError("call load(model_dir, data) first")
+            raise ValueError("call train(data) or load(model_dir, data) first")
         if test_df is None:
             tests = self.data.test
         elif isinstance(test_df, dict):
@@ -123,7 +145,7 @@ class Recommender:
             "dataset": self.config.dataset.get("dataset"),
             "data_split": self.config.dataset.get("data_split"),
         }
-        mean_row, _ = test_eval(evaluators, result_file=result_file, result_para=result_para)
+        mean_row, _ = test_eval(evaluators, result_file=result_file, result_para=result_para, run_time=self.run_time)
         return mean_row
 
     @torch.no_grad()

@@ -1,0 +1,316 @@
+"""Training engine: epoch trainers, early stop and checkpoints.
+
+Counterpart of ``beta_recsys_tpu/core/train_engine.py`` for the pairwise (BPR)
+batch kind on one device: ``make_optimizer``, ``make_negative_sampler``,
+``_padded_order``, the dense epoch trainer (``make_epoch_fn``) and
+``TrainEngine`` (``build``, ``train``, ``save_checkpoint``). Models with a row
+protocol and ``"sparse_optim": true`` train through the lazy-Adam trainer of
+``core/sparse_optim.py``.
+
+As in the JAX package, an epoch's batches are formed once before its step
+loop: the permutation (wrapped to a whole number of batches) and the
+negatives, drawn on the device from one ``torch.Generator`` seeded from
+``system.seed``. The step loop consumes them through
+``run_batches(users, pos, neg)``, which also takes batches formed elsewhere.
+Losses stay on the device; the host reads the mean once per epoch.
+"""
+
+import os
+import random
+import string
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from ..convert import params_to_jax
+from ..ops.sampling import (
+    make_membership_test,
+    sample_negatives_rejection,
+    sample_negatives_rejection_bitmask,
+    uniform_negatives,
+)
+from ..utils.constants import MAX_N_UPDATE
+from .checkpoint import load_raw_checkpoint, save_checkpoint, save_metadata
+from .eval_engine import EvalBookkeeper, RankingEvaluator
+
+# Dense positive bitmasks are used for rejection sampling up to this many cells.
+_BITMASK_CELL_LIMIT = 64 * 1024 * 1024
+
+
+def make_optimizer(model_cfg, params):
+    """sgd or adam over ``params``; optax's adam is torch's Adam with
+    betas (0.9, 0.999) and eps 1e-8."""
+    name = model_cfg.get("optimizer", "adam")
+    lr = float(model_cfg.get("lr", 1e-3))
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "rmsprop":
+        raise NotImplementedError(
+            "rmsprop: torch's RMSprop is not optax's; it waits to be written to optax's "
+            "formula (ROADMAP.md, section 1 item 1)"
+        )
+    raise ValueError(f"Unknown optimizer {name}")
+
+
+def make_negative_sampler(data, mode="auto", device="cpu"):
+    """fn(generator, users, shape) -> negative item ids on the users' device.
+
+    mode: 'uniform' (no rejection), 'bitmask', 'csr', or 'auto' (bitmask for
+    small catalogs, the CSR membership test otherwise)."""
+    n_items = data.n_items
+    if mode == "uniform":
+        return lambda gen, users, shape: uniform_negatives(gen, shape, n_items, users.device)
+    if mode == "auto":
+        mode = "bitmask" if data.n_users * data.n_items <= _BITMASK_CELL_LIMIT else "csr"
+    if mode == "bitmask":
+        pos_mask = torch.as_tensor(data.pos_bitmask(), device=device)
+        return lambda gen, users, shape: sample_negatives_rejection_bitmask(
+            gen, users, shape, n_items, pos_mask
+        )
+    if mode == "csr":
+        is_positive = make_membership_test(*data.pos_csr(), device=device)
+        return lambda gen, users, shape: sample_negatives_rejection(
+            gen, users, shape, n_items, is_positive
+        )
+    raise ValueError(f"Unknown negative sampler mode {mode}")
+
+
+def _padded_order(perm, padded_size):
+    """Extend a permutation to ``padded_size`` by wrapping."""
+    n = perm.shape[0]
+    if padded_size == n:
+        return perm
+    return perm.repeat(-(-padded_size // n))[:padded_size]
+
+
+class EpochBatches:
+    """An epoch's pairwise batches formed at once, then a step loop over them.
+    Subclasses define ``step(users, pos, neg) -> 0-d loss tensor``."""
+
+    def __init__(self, train_arrays, batch_size, neg_sampler, device):
+        self.device = torch.device(device)
+        self.users = torch.as_tensor(train_arrays.users, dtype=torch.long, device=self.device)
+        self.items = torch.as_tensor(train_arrays.items, dtype=torch.long, device=self.device)
+        self.n = self.users.shape[0]
+        if self.n == 0:
+            raise ValueError("empty training set for interaction batches — check filters/splits")
+        self.batch_size = min(int(batch_size), self.n)
+        self.num_batches = -(-self.n // self.batch_size)
+        self.padded_size = self.num_batches * self.batch_size
+        self.neg_sampler = neg_sampler
+
+    def form(self, generator):
+        """(users, pos, neg), each (num_batches, batch_size), on the device."""
+        perm = torch.randperm(self.n, generator=generator, device=self.device)
+        order = _padded_order(perm, self.padded_size)
+        users, pos = self.users[order], self.items[order]
+        neg = self.neg_sampler(generator, users, (self.padded_size,))
+        shape = (self.num_batches, self.batch_size)
+        return users.view(shape), pos.view(shape), neg.view(shape)
+
+    def run(self, generator):
+        """Form this epoch's batches and train on them; the mean batch loss."""
+        return self.run_batches(*self.form(generator))
+
+    def run_batches(self, users, pos, neg):
+        """Train on (num_batches, B) id arrays; the mean batch loss as a 0-d
+        device tensor."""
+        users, pos, neg = (torch.as_tensor(x, dtype=torch.long, device=self.device) for x in (users, pos, neg))
+        total = torch.zeros((), device=self.device)
+        for b in range(users.shape[0]):
+            total += self.step(users[b], pos[b], neg[b])
+        return total / users.shape[0]
+
+    def step(self, users, pos, neg):
+        raise NotImplementedError
+
+
+class DenseEpochTrainer(EpochBatches):
+    """Every parameter updates through ``optimizer`` from ``model.loss``."""
+
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler):
+        super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device)
+        self.model = model
+        self.optimizer = optimizer
+
+    def step(self, users, pos, neg):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss({"users": users, "pos_items": pos, "neg_items": neg})
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+
+def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler):
+    """The dense whole-epoch trainer for the model's batch kind."""
+    kind = model.batch_kind
+    if kind != "pairwise":
+        raise NotImplementedError(
+            f"batch kind {kind!r}: the port trains pairwise (BPR) batches so far; pointwise "
+            "(BCE) and multineg batches are ROADMAP.md, section 1 item 1"
+        )
+    return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+
+
+class TrainEngine:
+    """Run lifecycle: build the trainer, train with early stop, checkpoint."""
+
+    def __init__(self, config, device):
+        self.config = config
+        self.device = torch.device(device)
+        sys_cfg, model_cfg = config.system, config.model
+        timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        tag = "".join(random.SystemRandom().choices(string.ascii_lowercase, k=6))
+        self.model_run_id = (
+            f"{model_cfg.get('model', 'model')}_{model_cfg.get('config_id', 'default')}_{timestamp}_{tag}"
+        )
+        root = sys_cfg.get("root_dir", ".")
+        self.checkpoint_dir = os.path.join(root, sys_cfg.get("checkpoint_dir", "checkpoints/"), self.model_run_id)
+        self.seed = int(sys_cfg.get("seed", 2020))
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.epoch_seconds = []
+
+    def build(self, model, data, valid_candidates=None, test_candidates=None):
+        """Initialise the model's weights and wire the epoch trainer and the
+        evaluators."""
+        self.model, self.data = model, data
+        model_cfg, sys_cfg = self.config.model, self.config.system
+        if model_cfg.get("compute_dtype", sys_cfg.get("compute_dtype")) is not None:
+            raise NotImplementedError("compute_dtype: mixed precision is ROADMAP.md, section 1 item 7")
+        model.init_weights(torch.Generator().manual_seed(self.seed))
+        kind = model.batch_kind
+        sparse_req = model_cfg.get("sparse_optim", "auto")
+        sparse_capable = hasattr(model, "row_tables") and kind == "pairwise"
+        # "auto" is the dense path on one device, as in the JAX package.
+        self.sparse_optim = sparse_req != "auto" and bool(sparse_req) and sparse_capable
+        if sparse_req not in ("auto", False) and not self.sparse_optim:
+            print(f"[warn] sparse_optim requested but batch_kind={kind} has no row protocol; "
+                  "using the dense path")
+        neg_sampler = make_negative_sampler(data, model_cfg.get("neg_sampler", "auto"), self.device)
+        batch_size = int(model_cfg.get("batch_size", 256))
+        if self.sparse_optim:
+            from .sparse_optim import SparseEpochTrainer
+
+            tables = model.row_tables()
+            dense = [p for name, p in model.named_parameters() if name not in tables]
+            self.optimizer = make_optimizer(model_cfg, dense)
+            self.epoch_fn = SparseEpochTrainer(
+                model, data.train_arrays(), batch_size, neg_sampler,
+                lr=float(model_cfg.get("lr", 1e-3)), dense_optimizer=self.optimizer,
+                row_update=model_cfg.get("row_update", "auto"),
+            )
+        else:
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = make_epoch_fn(model, self.optimizer, data.train_arrays(), batch_size, neg_sampler)
+        metrics = tuple(sys_cfg.get("metrics", ["ndcg", "precision", "recall", "map"]))
+        ks = tuple(sys_cfg.get("k", [5, 10, 20]))
+        self.valid_evaluator = (
+            RankingEvaluator(model, valid_candidates, metrics, ks) if valid_candidates is not None else None
+        )
+        self.test_evaluator = (
+            RankingEvaluator(model, test_candidates, metrics, ks) if test_candidates is not None else None
+        )
+        self.bookkeeper = EvalBookkeeper(
+            valid_metric=sys_cfg.get("valid_metric", "ndcg"),
+            valid_k=sys_cfg.get("valid_k", 10),
+            max_n_update=int(model_cfg.get("max_n_update", MAX_N_UPDATE)),
+        )
+        return self
+
+    def train(self, max_epoch=None, verbose=True):
+        """Epoch loop with early stop, the best checkpoint on improvement and
+        ``last/`` every ``system.save_last_every`` epochs (0: only at the end).
+        Returns {"valid_metric", "best_epoch", "model_save_dir", "run_time"}."""
+        max_epoch = max_epoch or int(self.config.model.get("max_epoch", 100))
+        save_last_every = int(self.config.system.get("save_last_every", 1))
+        start = time.perf_counter()
+        epoch = -1
+        for epoch in range(max_epoch):
+            t0 = time.perf_counter()
+            loss = float(self.epoch_fn.run(self.generator))  # the epoch's one host read
+            self.epoch_seconds.append(time.perf_counter() - t0)
+            valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
+            test_result = self.test_evaluator.evaluate() if self.test_evaluator else {}
+            improved = self.bookkeeper.update(epoch, valid_result, test_result) if valid_result else False
+            if improved:
+                self.save_checkpoint(epoch=epoch, kind="best")
+            if save_last_every and (epoch + 1) % save_last_every == 0:
+                self.save_checkpoint(epoch=epoch, kind="last")
+            if verbose:
+                key = self.bookkeeper.key
+                print(f"[Epoch {epoch}] loss={loss:.4f} valid_{key}={valid_result.get(key, float('nan')):.4f} "
+                      f"({self.epoch_seconds[-1] * 1000:.0f} ms)" + (" *" if improved else ""))
+            if valid_result and self.bookkeeper.should_stop:
+                if verbose:
+                    print(f"Early stop at epoch {epoch} (best epoch {self.bookkeeper.best_epoch})")
+                break
+        if epoch >= 0:
+            self.save_checkpoint(epoch=epoch, kind="last")
+        self.run_time = time.perf_counter() - start
+        return {
+            "valid_metric": self.bookkeeper.best_valid_performance,
+            "best_epoch": self.bookkeeper.best_epoch,
+            "model_save_dir": self.checkpoint_dir,
+            "run_time": self.run_time,
+        }
+
+    # -- checkpoints ----------------------------------------------------------------
+
+    def _opt_state_tree(self):
+        """The optimizer state in the layout of the JAX package's dense optax
+        state for this config ({"0": {"count", "mu", "nu"}, "1": {}} for adam,
+        {"0": {}, "1": {}} for sgd): the table moments of the lazy-Adam
+        trainer and Adam's state of the other parameters, keyed by parameter
+        name, so the JAX package's cold ``load`` finds the structure it
+        expects."""
+        if self.config.model.get("optimizer", "adam") != "adam":
+            return {"0": {}, "1": {}}
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        mu, nu, count = {}, {}, 0
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                state = self.optimizer.state.get(p)
+                if state:
+                    mu[names[id(p)]] = state["exp_avg"].detach().cpu().numpy()
+                    nu[names[id(p)]] = state["exp_avg_sq"].detach().cpu().numpy()
+                    count = int(state["step"])
+        if self.sparse_optim:
+            for name, (m, v) in self.epoch_fn.state["moments"].items():
+                mu[name], nu[name] = m.cpu().numpy(), v.cpu().numpy()
+            count = self.epoch_fn.state["step"]
+        return {"0": {"count": np.int32(count), "mu": mu, "nu": nu}, "1": {}}
+
+    def save_checkpoint(self, epoch=None, kind="best"):
+        """``kind="best"`` writes ``<checkpoint_dir>/`` (the best-valid model,
+        what serving restores); ``kind="last"`` writes ``<checkpoint_dir>/last/``.
+        The file holds ``params`` in the JAX layout, the optimizer state
+        (``_opt_state_tree``) and the port's generator state as ``rng``."""
+        ckpt_dir = self.checkpoint_dir if kind == "best" else os.path.join(self.checkpoint_dir, "last")
+        save_checkpoint(ckpt_dir, {
+            "params": params_to_jax(self.model.state_dict()),
+            "opt_state": self._opt_state_tree(),
+            "rng": self.generator.get_state().numpy(),
+        })
+        save_metadata(ckpt_dir, {
+            "kind": kind,
+            "best_valid_performance": self.bookkeeper.best_valid_performance,
+            "best_epoch": self.bookkeeper.best_epoch,
+            "n_no_update": self.bookkeeper.n_no_update,
+            "epoch": self.bookkeeper.best_epoch if epoch is None else epoch,
+            "model_run_id": self.model_run_id,
+            "n_users": self.data.n_users,
+            "n_items": self.data.n_items,
+            "config": self.config.to_dict(),
+        })
+
+    def has_checkpoint(self, kind="best"):
+        ckpt_dir = self.checkpoint_dir if kind == "best" else os.path.join(self.checkpoint_dir, "last")
+        return os.path.exists(os.path.join(ckpt_dir, "checkpoint.msgpack"))
+
+    def load_params(self, ckpt_dir=None):
+        """The params tree of a checkpoint (the best one by default)."""
+        return load_raw_checkpoint(ckpt_dir or self.checkpoint_dir)["params"]

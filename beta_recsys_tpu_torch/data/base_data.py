@@ -18,6 +18,14 @@ import scipy.sparse as sp
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_RATING_COL, DEFAULT_USER_COL
 
 
+class TrainArrays(NamedTuple):
+    """Train interactions as flat arrays (int32 dense ids, float32 ratings)."""
+
+    users: np.ndarray
+    items: np.ndarray
+    ratings: np.ndarray
+
+
 class EvalCandidates(NamedTuple):
     """Padded per-user candidate sets for ranked evaluation.
 
@@ -62,6 +70,7 @@ class BaseData:
         self.train = self._prepare(train, bin_thld)
         self.valid = [self._prepare(self._intersect(f), bin_thld) for f in valid]
         self.test = [self._prepare(self._intersect(f), bin_thld) for f in test]
+        self._pos_csr_cache = None
 
     def _intersect(self, frame):
         """Drop rows whose user or item is unseen in train."""
@@ -79,6 +88,33 @@ class BaseData:
         out[DEFAULT_USER_COL] = _dense_ids(frame[DEFAULT_USER_COL], self.user_pool)
         out[DEFAULT_ITEM_COL] = _dense_ids(frame[DEFAULT_ITEM_COL], self.item_pool)
         return out
+
+    def train_arrays(self):
+        """Train interactions as flat arrays, for the trainers."""
+        return TrainArrays(
+            users=self.train[DEFAULT_USER_COL].astype(np.int32),
+            items=self.train[DEFAULT_ITEM_COL].astype(np.int32),
+            ratings=self.train[DEFAULT_RATING_COL].astype(np.float32),
+        )
+
+    def pos_csr(self):
+        """Per-user sorted positive items as CSR (indptr, items), int32: the
+        train pairs lexsorted by (user, item). Feeds the rejection sampler's
+        membership test (``ops/sampling.make_membership_test``)."""
+        if self._pos_csr_cache is None:
+            users = self.train[DEFAULT_USER_COL].astype(np.int64)
+            items = self.train[DEFAULT_ITEM_COL].astype(np.int64)
+            order = np.lexsort((items, users))
+            counts = np.bincount(users, minlength=self.n_users)
+            indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+            self._pos_csr_cache = (indptr, items[order].astype(np.int32))
+        return self._pos_csr_cache
+
+    def pos_bitmask(self):
+        """Dense (n_users, n_items) bool positive mask (small catalogs only)."""
+        mask = np.zeros((self.n_users, self.n_items), dtype=bool)
+        mask[self.train[DEFAULT_USER_COL], self.train[DEFAULT_ITEM_COL]] = True
+        return mask
 
     def user_item_csr(self):
         """Binarized user x item train interactions as scipy CSR."""

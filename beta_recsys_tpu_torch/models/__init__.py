@@ -1,6 +1,7 @@
+from .mf import MF
 from .sasrec import SASRec
 
-MODELS = {"SASRec": SASRec}
+MODELS = {"MF": MF, "SASRec": SASRec}
 
 
 def build_model(config, n_users, n_items, artifacts=None, device=None):

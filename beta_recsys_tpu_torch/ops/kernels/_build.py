@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -64,6 +65,14 @@ def build(name):
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib, time.perf_counter() - t0, proc.stdout
+
+
+def build_all(names):
+    """``build`` for several sources, their nvcc calls started together.
+    Returns {name: (library path, seconds, ptxas report)}, each call's
+    seconds its own."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.cache

@@ -1,12 +1,19 @@
 """User-facing recommender wrappers, one per model family.
 
-Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; only SASRec is
-ported so far.
+Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF and SASRec
+are ported so far.
 """
 
-from ..convert import sasrec_params_from_jax
+from ..convert import mf_params_from_jax, sasrec_params_from_jax
 from ..core.recommender import Recommender
 from ..data.sequential_data import SequentialData
+
+
+class MatrixFactorization(Recommender):
+    """MF with BPR: train, load, test, predict, recommend."""
+
+    model_name = "MF"
+    params_from_jax = staticmethod(mf_params_from_jax)
 
 
 class SASRec(Recommender):

@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""The JAX package's MF + BPR lazy-Adam band on the structured synthetic split.
+
+    JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py
+
+Trains ``beta_recsys_tpu``'s MatrixFactorization from
+``configs/mf_default.json`` with ``sparse_optim`` true and ``row_update``
+"xla" (the arithmetic of "fused", ``tests/test_rowadam_kernel.py``) on
+``parity_runs/datasets/synthetic_structured`` (leave-one-out, 100 negatives,
+one evaluation copy) once for each of seeds 0-9, with early stop, and prints
+each seed's best valid ndcg@10, best epoch, epochs run and test ndcg@10, then
+the mean and the sample standard deviation (ddof 1) of the best valid and the
+test ndcg@10. ``chip_smoke.py`` holds the port's lazy-Adam trainer to mean
++- 3 std. Results go under a temporary directory; the ten seeds take ~5
+minutes on a CPU.
+"""
+
+import json
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPLIT = os.path.join(
+    REPO, "parity_runs/datasets/synthetic_structured/processed/leave_one_out/full_n_neg_100"
+)
+SEEDS = range(10)
+
+
+def summarize(runs):
+    """Mean and sample std (ddof 1) of the best valid and test ndcg@10."""
+    summary = {"seeds": [r["seed"] for r in runs]}
+    for key in ("valid_best", "test_ndcg@10"):
+        values = np.array([r[key] for r in runs])
+        summary[f"{key}_mean"] = float(values.mean())
+        summary[f"{key}_std"] = float(values.std(ddof=1))
+    return summary
+
+
+def main():
+    sys.path.insert(0, REPO)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from beta_recsys_tpu.config import load_config
+    from beta_recsys_tpu.data.base_data import BaseData
+    from beta_recsys_tpu.datasets.data_split import load_split_data
+    from beta_recsys_tpu.recommenders import MatrixFactorization
+
+    data = BaseData(load_split_data(SPLIT, n_test=1))
+    runs = []
+    with tempfile.TemporaryDirectory() as root:
+        for seed in SEEDS:
+            cfg = load_config(os.path.join(REPO, "configs/mf_default.json")).replace(
+                system={"root_dir": root, "seed": seed},
+                dataset={"dataset": "synthetic_structured", "n_test": 1},
+                model={"sparse_optim": True, "row_update": "xla"},
+            )
+            rec = MatrixFactorization(cfg)
+            result = rec.train(data)
+            run = {
+                "seed": seed, "valid_best": result["valid_metric"],
+                "best_epoch": result["best_epoch"],
+                "epochs_run": len(rec.engine.bookkeeper.history),
+                "test_ndcg@10": rec.test()["ndcg@10"], "train_s": result["run_time"],
+            }
+            runs.append(run)
+            print(json.dumps(run), flush=True)
+    print(json.dumps(summarize(runs)))
+
+
+if __name__ == "__main__":
+    main()

@@ -51,6 +51,38 @@ def test_attention_bound():
     assert by == "operations" and ms == pytest.approx(4 * 32 * 12080 * 200 * 201 / 2 / 67e12 * 1e3)
 
 
+def test_rowadam_bound():
+    ms, by = chip_smoke.rowadam_bound(700, 64, 800)
+    assert by == "bytes" and ms == pytest.approx((700 * 7 * 64 * 4 + 800 * 8) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("zipf", [False, True])
+def test_rowadam_inputs_hold_every_case(zipf):
+    """Duplicate ids, all-zero gradient rows and an id whose gradients cancel."""
+    table, m, v, ids, grads = chip_smoke.rowadam_inputs(5000, 700, 8, 3, "cpu", zipf=zipf)
+    assert table.shape == m.shape == v.shape == (5000, 8) and grads.shape == (700, 8)
+    assert (v >= 0).all() and int(ids.min()) >= 0 and int(ids.max()) < 5000
+    assert len(torch.unique(ids)) < len(ids)
+    assert not grads[::7].any()
+    cancel = ids[-1]
+    assert ids[-2] == cancel and (ids == cancel).sum() == 2 and grads[-2].any()
+    _, summed = chip_smoke._segment_dedup(ids, grads)
+    assert (summed != 0).any(dim=1).sum() < len(torch.unique(ids))
+
+
+def test_in_band_fails_outside_mean_plus_minus_three_std():
+    assert "in [0.1700, 0.2300]" in chip_smoke.in_band("ndcg", 0.2, (0.2, 0.01))
+    with pytest.raises(SystemExit):
+        chip_smoke.in_band("ndcg", 0.2301, (0.2, 0.01))
+
+
+def test_mf_config_is_the_default_on_the_parity_split():
+    cfg = chip_smoke.mf_config(1, "/nowhere", sparse_optim=True, row_update="fused")
+    assert cfg.system.seed == 1 and cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
+    assert (cfg.model.emb_dim, cfg.model.batch_size, cfg.model.lr, cfg.model.reg) == (64, 400, 0.05, 0.001)
+    assert (cfg.model.max_epoch, cfg.model.max_n_update, cfg.model.row_update) == (200, 20, "fused")
+
+
 def _recs(items, scores):
     items, scores = np.asarray(items), np.asarray(scores, dtype=np.float32)
     return {DEFAULT_ITEM_COL: items.reshape(-1), DEFAULT_PREDICTION_COL: scores.reshape(-1)}

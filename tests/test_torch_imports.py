@@ -22,6 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.ml1m_shaped_split(0, n_users=30, n_items=60, n_interactions=900, max_per_user=50, n_negative=5)
+chip_smoke.rowadam_inputs(100, 40, 4, 0, "cpu", zipf=True)
+chip_smoke.mf_config(0, "unused", sparse_optim=True)
 print(len(names))
 """
 
@@ -31,7 +33,7 @@ def test_port_and_chip_smoke_import_without_jax_pandas_or_reference():
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120, cwd=REPO
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was reached
+    assert int(out.stdout.strip().splitlines()[-1]) >= 27  # every module was reached
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
@@ -50,3 +52,12 @@ def test_recommender_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SASRec({"model": {"model": "SASRec"}})
     assert SASRec({"model": {"model": "SASRec"}}, device="cpu").device == torch.device("cpu")
+
+
+def test_mf_recommender_defaults_to_cuda(monkeypatch):
+    from beta_recsys_tpu_torch.recommenders import MatrixFactorization
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MatrixFactorization({"model": {"model": "MF"}})
+    assert MatrixFactorization({"model": {"model": "MF"}}, device="cpu").device == torch.device("cpu")
