@@ -40,15 +40,23 @@ def mf_params_from_jax(params):
     return _flatten(params)
 
 
-def params_to_jax(state_dict):
-    """A port ``state_dict`` as the JAX params tree: dotted names nest as
-    dicts (a list of blocks comes out keyed "0", "1", ..., as a checkpoint
-    stores it)."""
+def nest_dotted(flat):
+    """{dotted name: value} as nested dicts: ``blocks.0.attn.wq`` ->
+    {"blocks": {"0": {"attn": {"wq": value}}}}; flat names stay flat."""
     tree = {}
-    for name, value in state_dict.items():
+    for name, value in flat.items():
         *path, leaf = name.split(".")
         node = tree
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = value.detach().cpu().numpy().astype(np.float32, copy=False)
+        node[leaf] = value
     return tree
+
+
+def params_to_jax(state_dict):
+    """A port ``state_dict`` as the JAX params tree: dotted names nest as
+    dicts (a list of blocks comes out keyed "0", "1", ..., as a checkpoint
+    stores it)."""
+    return nest_dotted(
+        {name: value.detach().cpu().numpy().astype(np.float32, copy=False) for name, value in state_dict.items()}
+    )

@@ -85,7 +85,7 @@ class SparseEpochTrainer(EpochBatches):
         if row_update in TPU_ROW_LAYOUTS:
             raise NotImplementedError(
                 f"row_update={row_update!r} is a TPU row layout; whether the card wants one "
-                "waits for a measurement (ROADMAP.md, section 1 item 1)"
+                "waits for a measurement (ROADMAP.md, section 1 item 2, the rest of MF training)"
             )
         if row_update not in ("fused", "xla"):
             raise ValueError(f"unknown row_update {row_update!r}; use 'fused', 'xla' or 'auto'")

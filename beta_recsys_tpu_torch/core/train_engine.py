@@ -1,18 +1,20 @@
 """Training engine: epoch trainers, early stop and checkpoints.
 
-Counterpart of ``beta_recsys_tpu/core/train_engine.py`` for the pairwise (BPR)
-batch kind on one device: ``make_optimizer``, ``make_negative_sampler``,
-``_padded_order``, the dense epoch trainer (``make_epoch_fn``) and
-``TrainEngine`` (``build``, ``train``, ``save_checkpoint``). Models with a row
-protocol and ``"sparse_optim": true`` train through the lazy-Adam trainer of
+Counterpart of ``beta_recsys_tpu/core/train_engine.py`` on one device for the
+pairwise (BPR) and sequence (SASRec) batch kinds: ``make_optimizer``,
+``make_negative_sampler``, ``_padded_order``, the dense pairwise trainer
+(``make_epoch_fn``), the sequence trainer (``SequenceEpochTrainer``, the
+counterpart of ``make_sequence_epoch_fn``) and ``TrainEngine`` (``build``,
+``train``, ``save_checkpoint``). Models with a row protocol and
+``"sparse_optim": true`` train through the lazy-Adam trainer of
 ``core/sparse_optim.py``.
 
 As in the JAX package, an epoch's batches are formed once before its step
-loop: the permutation (wrapped to a whole number of batches) and the
-negatives, drawn on the device from one ``torch.Generator`` seeded from
-``system.seed``. The step loop consumes them through
-``run_batches(users, pos, neg)``, which also takes batches formed elsewhere.
-Losses stay on the device; the host reads the mean once per epoch.
+loop (the row draw or permutation, and the negatives), drawn on the device
+from one ``torch.Generator`` seeded from ``system.seed``. The step loop
+consumes them through ``run_batches``, which also takes batches formed
+elsewhere; a sequence step draws its dropout from the same generator. Losses
+stay on the device; the host reads the mean once per epoch.
 """
 
 import os
@@ -24,7 +26,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from ..convert import params_to_jax
+from ..convert import nest_dotted, params_to_jax
 from ..ops.sampling import (
     make_membership_test,
     sample_negatives_rejection,
@@ -51,7 +53,7 @@ def make_optimizer(model_cfg, params):
     if name == "rmsprop":
         raise NotImplementedError(
             "rmsprop: torch's RMSprop is not optax's; it waits to be written to optax's "
-            "formula (ROADMAP.md, section 1 item 1)"
+            "formula (ROADMAP.md, section 1 item 2, the rest of MF training)"
         )
     raise ValueError(f"Unknown optimizer {name}")
 
@@ -146,14 +148,74 @@ class DenseEpochTrainer(EpochBatches):
 
 
 def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler):
-    """The dense whole-epoch trainer for the model's batch kind."""
+    """The dense whole-epoch trainer for the model's pairwise batches."""
     kind = model.batch_kind
     if kind != "pairwise":
         raise NotImplementedError(
-            f"batch kind {kind!r}: the port trains pairwise (BPR) batches so far; pointwise "
-            "(BCE) and multineg batches are ROADMAP.md, section 1 item 1"
+            f"batch kind {kind!r}: the port trains pairwise (BPR) and sequence batches so far; "
+            "pointwise (BCE) and multineg batches are ROADMAP.md, section 1 item 2 (the rest of MF training)"
         )
     return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+
+
+class SequenceEpochTrainer:
+    """Whole-epoch trainer for sequence models (SASRec), the counterpart of
+    ``make_sequence_epoch_fn``. Each epoch draws ``max(n // B, 1)`` batches
+    of ``B`` training rows with replacement and one negative per position,
+    rejected against the user's positives and shifted +1 into the 1-indexed
+    item space (0 at padded positions). Every parameter updates through
+    ``optimizer`` from ``model.loss(batch, generator)``.
+
+    ``run(generator)`` forms the epoch's batches and trains on them, drawing
+    each step's dropout from ``generator``; ``run_batches(rows, users, neg0,
+    generator=None)`` trains on given (num_batches, B) rows and users and
+    (num_batches, B, maxlen) 0-indexed negatives. Both return the mean batch
+    loss as a 0-d device tensor.
+    """
+
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler):
+        self.model = model
+        self.optimizer = optimizer
+        self.device = next(model.parameters()).device
+        self.users, self.seq, self.pos = (
+            torch.as_tensor(seq_arrays[key], dtype=torch.long, device=self.device) for key in ("users", "seq", "pos")
+        )
+        self.n = self.users.shape[0]
+        if self.n == 0:
+            raise ValueError("empty training set for sequence batches (users need >= 2 interactions)")
+        self.batch_size = min(int(batch_size), self.n)
+        self.num_batches = max(self.n // self.batch_size, 1)
+        self.maxlen = self.seq.shape[1]
+        self.neg_sampler = neg_sampler
+
+    def form(self, generator):
+        """(rows, users, neg0): (num_batches, B), (num_batches, B) and
+        (num_batches, B, maxlen), on the device."""
+        shape = (self.num_batches, self.batch_size)
+        rows = torch.randint(0, self.n, shape, generator=generator, device=self.device)
+        users = self.users[rows]
+        neg0 = self.neg_sampler(generator, users[..., None], (*shape, self.maxlen))
+        return rows, users, neg0
+
+    def run(self, generator):
+        """Form this epoch's batches and train on them; the mean batch loss."""
+        return self.run_batches(*self.form(generator), generator=generator)
+
+    def run_batches(self, rows, users, neg0, generator=None):
+        rows, users, neg0 = (torch.as_tensor(x, dtype=torch.long, device=self.device) for x in (rows, users, neg0))
+        total = torch.zeros((), device=self.device)
+        for b in range(rows.shape[0]):
+            total += self.step(rows[b], users[b], neg0[b], generator)
+        return total / rows.shape[0]
+
+    def step(self, rows, users, neg0, generator):
+        pos = self.pos[rows]
+        batch = {"users": users, "seq": self.seq[rows], "pos": pos, "neg": torch.where(pos != 0, neg0 + 1, 0)}
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss(batch, generator)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
 
 
 class TrainEngine:
@@ -180,7 +242,9 @@ class TrainEngine:
         self.model, self.data = model, data
         model_cfg, sys_cfg = self.config.model, self.config.system
         if model_cfg.get("compute_dtype", sys_cfg.get("compute_dtype")) is not None:
-            raise NotImplementedError("compute_dtype: mixed precision is ROADMAP.md, section 1 item 7")
+            raise NotImplementedError(
+                "compute_dtype: mixed precision is ROADMAP.md, section 1 item 2 (the rest of MF training)"
+            )
         model.init_weights(torch.Generator().manual_seed(self.seed))
         kind = model.batch_kind
         sparse_req = model_cfg.get("sparse_optim", "auto")
@@ -202,6 +266,12 @@ class TrainEngine:
                 model, data.train_arrays(), batch_size, neg_sampler,
                 lr=float(model_cfg.get("lr", 1e-3)), dense_optimizer=self.optimizer,
                 row_update=model_cfg.get("row_update", "auto"),
+            )
+        elif kind == "sequence":
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = SequenceEpochTrainer(
+                model, self.optimizer, data.train_seq_arrays(model.maxlen),
+                int(model_cfg.get("batch_size", 128)), neg_sampler,
             )
         else:
             self.optimizer = make_optimizer(model_cfg, model.parameters())
@@ -264,9 +334,10 @@ class TrainEngine:
         """The optimizer state in the layout of the JAX package's dense optax
         state for this config ({"0": {"count", "mu", "nu"}, "1": {}} for adam,
         {"0": {}, "1": {}} for sgd): the table moments of the lazy-Adam
-        trainer and Adam's state of the other parameters, keyed by parameter
-        name, so the JAX package's cold ``load`` finds the structure it
-        expects."""
+        trainer and Adam's state of the other parameters, nested like the
+        params tree (``blocks.0.attn.wq`` -> {"blocks": {"0": {"attn":
+        {"wq": ...}}}}; MF's names are flat), so the JAX package's cold
+        ``load`` finds the structure it expects."""
         if self.config.model.get("optimizer", "adam") != "adam":
             return {"0": {}, "1": {}}
         names = {id(p): name for name, p in self.model.named_parameters()}
@@ -282,7 +353,7 @@ class TrainEngine:
             for name, (m, v) in self.epoch_fn.state["moments"].items():
                 mu[name], nu[name] = m.cpu().numpy(), v.cpu().numpy()
             count = self.epoch_fn.state["step"]
-        return {"0": {"count": np.int32(count), "mu": mu, "nu": nu}, "1": {}}
+        return {"0": {"count": np.int32(count), "mu": nest_dotted(mu), "nu": nest_dotted(nu)}, "1": {}}
 
     def save_checkpoint(self, epoch=None, kind="best"):
         """``kind="best"`` writes ``<checkpoint_dir>/`` (the best-valid model,

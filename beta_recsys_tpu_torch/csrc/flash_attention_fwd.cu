@@ -1,11 +1,13 @@
 // Causal flash attention, forward, written by hand for Hopper (sm_90a).
 //
-// Replaces beta_recsys_tpu/ops/pallas/flash_attention.py:_fwd_kernel at
-// dropout rate 0 (reached through _flash_call). For q, k, v of shape
-// (N = batch * heads, T, dh), contiguous, float32 or bfloat16:
-//   out = softmax(q k^T / sqrt(dh) + causal mask) v    (N, T, dh), q's type
-//   lse = m + log(sum_j exp(s_j - m))                 (N, T, 1), float32
-// All arithmetic is float32, whatever the input type.
+// Replaces beta_recsys_tpu/ops/pallas/flash_attention.py:_fwd_kernel (reached
+// through _flash_call), attention dropout included. For q, k, v of shape
+// (N = batch * heads, T, dh), contiguous, float32 or bfloat16, dh 16, 32 or 64:
+//   P   = softmax(q k^T / sqrt(dh) + causal mask)
+//   out = (P * keep / (1 - rate)) v                 (N, T, dh), q's type
+//   lse = m + log(sum_j exp(s_j - m))              (N, T, 1), float32
+// keep is the Philox mask of philox.cuh (all ones at rate 0). All arithmetic
+// is float32, whatever the input type.
 //
 // Design. The TPU kernel gives one program a whole (T, T) score matrix in
 // VMEM. Here one thread block of 64 threads owns one (n, 64-row query tile);
@@ -16,9 +18,12 @@
 // rescale of the accumulator per chunk. Because query and key tiles are both
 // 64 rows, only the diagonal tile masks by index. Rows and keys past T (the
 // ragged edge) are masked; T = 1 works. Nothing of the (T, T) matrix reaches
-// device memory. Shared memory is static, 2 * 64 * dh * 4 bytes (16 KB at
-// dh = 32, the only head dim a served config uses): under the 48 KB that needs
-// no opt-in through cudaFuncAttributeMaxDynamicSharedMemorySize.
+// device memory. Dropout acts after the normalisation, as in the TPU kernel:
+// the row sum l (and so lse) sums every visible key, kept or dropped, and only
+// the output accumulator takes the mask and the 1/(1 - rate) factor. A chunk
+// of 8 keys takes two Philox calls. Shared memory is static,
+// 2 * 64 * dh * 4 bytes (32 KB at dh = 64): under the 48 KB that needs no
+// opt-in through cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
 // What bounds it on the H100 (3.35 TB/s, 67 TFLOP/s float32 outside the tensor
 // cores, 989 TFLOP/s bf16 in them). The function moves N*T*(4*dh*b + 4) bytes
@@ -36,55 +41,30 @@
 // shared library and called through ctypes. It launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
 
 #include <cmath>
 
+#include "flash_attention_common.cuh"
+#include "philox.cuh"
+
 namespace {
 
-constexpr int kRows = 64;   // query rows per block, one per thread
-constexpr int kKeys = 64;   // key rows per shared-memory tile; == kRows
-constexpr int kChunk = 8;   // keys per online-softmax update
-constexpr float kLog2e = 1.4426950408889634f;
+using flash::kKeys;
+using flash::kLog2e;
+using flash::kRows;
 
-static_assert(kKeys == kRows, "only the diagonal tile may need the causal mask");
+constexpr int kChunk = 8;  // keys per online-softmax update: two Philox calls
+
 static_assert(kKeys % kChunk == 0, "a chunk never crosses a tile");
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = raw.x;
-  *reinterpret_cast<uint32_t*>(&hi) = raw.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int seq, float scale) {
+                 float* __restrict__ lse, const int64_t* __restrict__ seed,
+                 int seq, float scale, int dropout, uint32_t threshold,
+                 float keep_scale) {
   static_assert(DH % 4 == 0, "rows move as 4-element vectors");
   __shared__ __align__(16) float ks[kKeys * DH];
   __shared__ __align__(16) float vs[kKeys * DH];
@@ -94,19 +74,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = q0 + threadIdx.x;
   const bool active = row < seq;
   const size_t head = static_cast<size_t>(n) * seq * DH;
+  const philox::Key key = dropout ? philox::key_of(seed) : philox::Key{0u, 0u};
 
   float qr[DH];
   float acc[DH];
+  flash::load_row<DH>(qr, q + head + static_cast<size_t>(row) * DH, active);
 #pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    const float4 x = active ? load4(q + head + static_cast<size_t>(row) * DH + d)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[d] = x.x;
-    qr[d + 1] = x.y;
-    qr[d + 2] = x.z;
-    qr[d + 3] = x.w;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-  }
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
 
   // m is the running max of the raw q.k over the keys seen so far; exponents
   // are taken in base 2 as (q.k - m) * scale * log2(e).
@@ -116,17 +90,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key_end = min(q0 + kRows, seq);  // keys the block's last row sees
 
   for (int k0 = 0; k0 < key_end; k0 += kKeys) {
-    for (int i = threadIdx.x * 4; i < kKeys * DH; i += kRows * 4) {
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + i / DH < seq) {
-        const size_t at = head + static_cast<size_t>(k0) * DH + i;
-        kx = load4(k + at);
-        vx = load4(v + at);
-      }
-      store4(ks + i, kx);
-      store4(vs + i, vx);
-    }
+    flash::stage_tiles<DH, kRows>(ks, k + head, vs, v + head, k0, seq);
     __syncthreads();
 
     if (active) {
@@ -138,18 +102,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float cmax = -CUDART_INF_F;
 #pragma unroll
         for (int t = 0; t < kChunk; ++t) {
-          const float* kr = ks + (j0 + t) * DH;
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; d += 4) {
-            const float4 kk = *reinterpret_cast<const float4*>(kr + d);
-            dot = fmaf(qr[d], kk.x, dot);
-            dot = fmaf(qr[d + 1], kk.y, dot);
-            dot = fmaf(qr[d + 2], kk.z, dot);
-            dot = fmaf(qr[d + 3], kk.w, dot);
-          }
+          const float dot = flash::dot_shared<DH>(qr, ks + (j0 + t) * DH);
           s[t] = (j0 + t < visible) ? dot : -CUDART_INF_F;
           cmax = fmaxf(cmax, s[t]);
+        }
+        uint32_t bits[kChunk];
+        if (dropout) {
+          const int g = (k0 + j0) / 4;
+          const uint4 a = philox::bits4(key, n, row, g);
+          const uint4 b = philox::bits4(key, n, row, g + 1);
+          bits[0] = a.x; bits[1] = a.y; bits[2] = a.z; bits[3] = a.w;
+          bits[4] = b.x; bits[5] = b.y; bits[6] = b.z; bits[7] = b.w;
         }
         const float m_new = fmaxf(m, cmax);
         const float alpha = exp2f((m - m_new) * c);  // 0 on the first chunk
@@ -159,16 +122,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int t = 0; t < kChunk; ++t) {
           const float p = exp2f((s[t] - m_new) * c);  // 0 for a masked key
-          l += p;
-          const float* vr = vs + (j0 + t) * DH;
-#pragma unroll
-          for (int d = 0; d < DH; d += 4) {
-            const float4 vv = *reinterpret_cast<const float4*>(vr + d);
-            acc[d] = fmaf(p, vv.x, acc[d]);
-            acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-            acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-            acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-          }
+          l += p;  // every visible key, kept or dropped
+          const float pv = !dropout ? p : (bits[t] >= threshold ? p * keep_scale : 0.f);
+          flash::axpy_shared<DH>(acc, pv, vs + (j0 + t) * DH);
         }
         m = m_new;
       }
@@ -177,43 +133,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (active) {
-    const float inv = 1.f / l;
-    T* dst = out + head + static_cast<size_t>(row) * DH;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
-      store4(dst + d, make_float4(acc[d] * inv, acc[d + 1] * inv,
-                                  acc[d + 2] * inv, acc[d + 3] * inv));
-    }
+    flash::store_row<DH>(out + head + static_cast<size_t>(row) * DH, acc, 1.f / l);
     lse[static_cast<size_t>(n) * seq + row] = m * scale + logf(l);
   }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int n, int seq, cudaStream_t stream) {
+           const void* seed, int n, int seq, int dropout, uint32_t threshold,
+           float keep_scale, cudaStream_t stream) {
   // 1/sqrt(dh) rounded once to float32, as the reference computes it.
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
   const dim3 grid(n, (seq + kRows - 1) / kRows);
   flash_fwd_kernel<T, DH><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), seq, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int64_t*>(seed),
+      seq, scale, dropout, threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dh(const void* q, const void* k, const void* v, void* out, void* lse,
+              const void* seed, int n, int seq, int dh, int dropout,
+              uint32_t threshold, float keep_scale, cudaStream_t s) {
+  switch (dh) {
+    case 16: return launch<T, 16>(q, k, v, out, lse, seed, n, seq, dropout, threshold, keep_scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, seed, n, seq, dropout, threshold, keep_scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, seed, n, seq, dropout, threshold, keep_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q, k, v, out: (n, seq, dh) contiguous, 16-byte aligned; bf16 != 0 selects
-// bfloat16, else float32. lse: (n, seq) float32. dh must be 32.
+// bfloat16, else float32. lse: (n, seq) float32. dh is 16, 32 or 64.
+// dropout != 0 drops attention probabilities by the Philox mask of the int64
+// *seed (a device pointer, read by the kernel) with the given threshold and
+// scales kept ones by keep_scale = 1/(1 - rate); seed may be null otherwise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, void* lse, int n, int seq, int dh,
-                                   int bf16, void* stream) {
-  if (n <= 0 || seq <= 0 || seq > 65535 * kRows) {
+                                   void* out, void* lse, const void* seed,
+                                   int n, int seq, int dh, int bf16, int dropout,
+                                   unsigned int threshold, float keep_scale,
+                                   void* stream) {
+  if (n <= 0 || seq <= 0 || seq > 65535 * kRows || (dropout && seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh != 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, lse, n, seq, s)
-              : launch<float, 32>(q, k, v, out, lse, n, seq, s);
+  return bf16 ? launch_dh<__nv_bfloat16>(q, k, v, out, lse, seed, n, seq, dh, dropout, threshold, keep_scale, s)
+              : launch_dh<float>(q, k, v, out, lse, seed, n, seq, dh, dropout, threshold, keep_scale, s);
 }

@@ -1,8 +1,8 @@
 """Per-user chronological item sequences as padded context matrices.
 
 Counterpart of ``SequentialData`` in
-``beta_recsys_tpu/data/sequential_data.py`` (the serving part: train
-sequences and evaluation contexts). Items are 1-indexed here (0 = padding),
+``beta_recsys_tpu/data/sequential_data.py``: train sequences, the SASRec
+training arrays and evaluation contexts. Items are 1-indexed here (0 = padding),
 so dense item ids from ``BaseData`` are shifted by +1. Chronology is forward:
 oldest first, ordered by a stable sort on the timestamp.
 """
@@ -38,6 +38,30 @@ class SequentialData(BaseData):
         """Per-user chronological (oldest-first) 1-indexed item arrays."""
         indptr, items = self._grouped(*self._train_events())
         return np.split(items, indptr[1:-1])
+
+    def train_seq_arrays(self, maxlen):
+        """SASRec's training arrays: {"users": (n,), "seq": (n, maxlen),
+        "pos": (n, maxlen)}, int32, for the users with >= 2 train items.
+        ``seq`` holds a user's items but the newest and ``pos`` the items but
+        the oldest (each input's next item), the last ``maxlen`` of each,
+        right-aligned and 0-padded on the left; items 1-indexed."""
+        indptr, items = self._grouped(*self._train_events())
+        counts = np.diff(indptr)
+        users = np.nonzero(counts >= 2)[0]
+        row_of = np.full(self.n_users, -1)
+        row_of[users] = np.arange(len(users))
+        owner = np.repeat(np.arange(self.n_users), counts)
+        from_end = indptr[owner + 1] - np.arange(len(items))  # 1 for the newest
+        row = row_of[owner]
+        seq = np.zeros((len(users), maxlen), dtype=np.int32)
+        pos = np.zeros((len(users), maxlen), dtype=np.int32)
+        # An item f-th from the end is input f - 1 from the end, if not the
+        # newest, and target f from the end, if not the oldest.
+        inp = (row >= 0) & (from_end >= 2) & (from_end - 1 <= maxlen)
+        seq[row[inp], maxlen - (from_end[inp] - 1)] = items[inp]
+        tgt = (row >= 0) & (from_end < counts[owner]) & (from_end <= maxlen)
+        pos[row[tgt], maxlen - from_end[tgt]] = items[tgt]
+        return {"users": users.astype(np.int32), "seq": seq, "pos": pos}
 
     def eval_context(self, maxlen, extra_df=None):
         """(n_users, maxlen) int32 context: each user's last ``maxlen`` train

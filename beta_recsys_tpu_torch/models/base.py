@@ -10,6 +10,8 @@ scoring method runs without autograd bookkeeping when called under
 import torch
 from torch import nn
 
+from ..device import resolve_device
+
 
 class RecModel(nn.Module):
     """Static hyperparameters + parameters + the scoring contract."""
@@ -17,13 +19,14 @@ class RecModel(nn.Module):
     def __init__(self, config, n_users, n_items, artifacts=None, device=None):
         """``config`` is the model section (mapping); ``artifacts`` carries
         derived data (e.g. sequence contexts) explicitly, never through the
-        config. Parameters are created on ``device``."""
+        config. Parameters are created on ``device``: the GPU when it is
+        None (``resolve_device``, which raises without CUDA)."""
         super().__init__()
         self.config = config
         self.n_users = n_users
         self.n_items = n_items
         self.artifacts = artifacts or {}
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.emb_dim = int(config.get("emb_dim", 64))
         self.stddev = float(config.get("stddev", 0.1))
 

@@ -1,4 +1,4 @@
-"""SASRec: causal self-attention over item sequences (serving).
+"""SASRec: causal self-attention over item sequences (serving and training).
 
 Counterpart of ``beta_recsys_tpu/models/sasrec.py``: an item table with
 padding row 0 (n_items + 1 rows) scaled by sqrt(d), learned position
@@ -6,6 +6,8 @@ embeddings, ``num_blocks`` of [LN on the query -> causal MHA, residual from
 the normalized query -> LN -> pointwise FFN] with timeline masking, and a final
 LN. Candidate scoring reads each user's context row (``artifacts["ctx"]``,
 1-indexed items, left-padded); dense 0-indexed candidate ids are shifted +1.
+Training scores every position against its next item and a sampled negative
+(``loss``), with dropout drawn from the ``torch.Generator`` it is given.
 
 Parameter names and layouts follow the JAX params tree: ``item_emb``,
 ``pos_emb``, ``blocks.<i>.{attn_ln,attn,ffn_ln,ffn}.*`` and ``last_ln.*``,
@@ -16,9 +18,10 @@ import copy
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import causal_mha, layer_norm, pointwise_ffn
+from ..ops.attention import causal_mha, inverted_dropout, layer_norm, pointwise_ffn
 from .base import RecModel
 
 
@@ -29,11 +32,15 @@ def _params(device, **shapes):
 
 
 class SASRec(RecModel):
+    batch_kind = "sequence"
+
     def __init__(self, config, n_users, n_items, artifacts=None, device=None):
         super().__init__(config, n_users, n_items, artifacts, device)
         self.maxlen = int(config.get("maxlen", 200))
         self.num_blocks = int(config.get("num_blocks", 2))
         self.num_heads = int(config.get("num_heads", 2))
+        self.dropout_rate = float(config.get("dropout_rate", 0.1))
+        self.l2_emb = float(config.get("l2_emb", 0.0))
         # "auto"/True: the flash kernel on CUDA tensors, its plain version on CPU
         # tensors; False: the plain version on either.
         self.fused_attention = config.get("fused_attention", "auto")
@@ -86,11 +93,19 @@ class SASRec(RecModel):
         clone.ctx = torch.as_tensor(ctx, device=self.item_emb.device)
         return clone
 
-    def log2feats(self, log_seqs):
-        """Encode (B, T) 1-indexed item sequences -> (B, T, D) features."""
+    def log2feats(self, log_seqs, generator=None, seq_emb_raw=None):
+        """Encode (B, T) 1-indexed item sequences -> (B, T, D) features.
+
+        With a ``generator`` the embedding, attention and FFN dropouts are
+        drawn from it in the JAX package's order: the embedding, then per
+        block the attention probabilities, FFN 1 and FFN 2. ``seq_emb_raw``
+        replaces the item-table lookup with pre-gathered unscaled rows (the
+        loss shares one gather between inputs and targets)."""
         T = log_seqs.shape[1]
-        seqs = self.item_emb[log_seqs] * math.sqrt(self.emb_dim)
+        raw = self.item_emb[log_seqs] if seq_emb_raw is None else seq_emb_raw
+        seqs = raw * math.sqrt(self.emb_dim)
         seqs = seqs + self.pos_emb[None, self.maxlen - T:, :]
+        seqs = inverted_dropout(generator, seqs, self.dropout_rate)
         timeline = (log_seqs != 0)[..., None].to(seqs.dtype)
         seqs = seqs * timeline
         for blk in self.blocks:
@@ -99,12 +114,33 @@ class SASRec(RecModel):
             attn_out = causal_mha(
                 q, seqs, seqs, self.num_heads,
                 attn["wq"], attn["wk"], attn["wv"], attn["wo"],
-                fused=self.fused_attention,
+                dropout_rate=self.dropout_rate, generator=generator, fused=self.fused_attention,
             )
             seqs = q + attn_out
             seqs = layer_norm(seqs, blk["ffn_ln"]["scale"], blk["ffn_ln"]["bias"])
-            seqs = pointwise_ffn(seqs, blk["ffn"]) * timeline
+            seqs = pointwise_ffn(seqs, blk["ffn"], self.dropout_rate, generator) * timeline
         return layer_norm(seqs, self.last_ln["scale"], self.last_ln["bias"])
+
+    def loss(self, batch, generator=None):
+        """Masked BCE-with-logits over (pos, neg) at every position, plus
+        ``l2_emb`` times the Frobenius norm (not squared) of the item table.
+
+        ``pos`` is ``seq`` shifted by one, so one gather of the (B, T+1)
+        extended sequence serves the encoder input and the positive targets;
+        where the two differ, pos is padding, which the mask zeroes."""
+        seq, pos, neg = batch["seq"], batch["pos"], batch["neg"]
+        ext_emb = self.item_emb[torch.cat([seq, pos[:, -1:]], dim=1)]
+        feats = self.log2feats(seq, generator, seq_emb_raw=ext_emb[:, :-1])
+        valid = pos != 0
+        pos_emb = torch.where(valid[..., None], ext_emb[:, 1:], 0.0)
+        pos_logits = (feats * pos_emb).sum(dim=-1)
+        neg_logits = (feats * self.item_emb[neg]).sum(dim=-1)
+        mask = valid.to(torch.float32)
+        n_valid = mask.sum().clamp(min=1.0)
+        loss = ((F.softplus(-pos_logits) + F.softplus(neg_logits)) * mask).sum() / n_valid
+        if self.l2_emb > 0:
+            loss = loss + self.l2_emb * self.item_emb.square().sum().sqrt()
+        return loss
 
     def _final_feats(self, users):
         if self.ctx is None:

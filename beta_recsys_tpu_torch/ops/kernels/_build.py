@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call builds it in seconds. The shared library goes into
 ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``) under a name that carries the hash of the source and the
-flags: an edited source builds anew, an unchanged one is loaded as it is.
+``.gitignore``) under a name that carries the hash of the source, the
+headers it may include (``csrc/*.cuh``) and the flags: an edited source or
+header builds anew, an unchanged one is loaded as it is.
 Nothing is built when a module is imported, only at a kernel's first launch
 or through ``build``.
 """
@@ -42,8 +43,11 @@ def find_nvcc():
 
 
 def library_path(name):
-    """Where the library of ``csrc/<name>.cu`` goes, keyed by its content."""
+    """Where the library of ``csrc/<name>.cu`` goes, keyed by its content and
+    that of every header in ``csrc/``."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

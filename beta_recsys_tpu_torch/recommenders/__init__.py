@@ -17,10 +17,13 @@ class MatrixFactorization(Recommender):
 
 
 class SASRec(Recommender):
-    """SASRec sequential recommender.
+    """SASRec sequential recommender: train, load, test, predict, recommend.
 
-    Scoring reads each user's train sequence as context; the final test and
-    recommend() extend it with the user's validation items (test_model()).
+    Training (``Recommender.train`` on a ``SequentialData``) builds each
+    user's train sequence as the scoring context, so validation scores
+    against it; after training the model holds the best checkpoint, and the
+    final test and recommend() extend the context with the user's
+    validation items (test_model()).
     """
 
     model_name = "SASRec"

@@ -8,9 +8,11 @@ Phases, each printed with the seconds elapsed:
   1. build the port's CUDA kernels from csrc/ (one nvcc call each, all
      started together);
   2. each kernel against its plain PyTorch version on the card, at the shapes
-     its path gives it (and fused_rowadam also at a table-scale shape), with
-     times (kernel, plain, one library call as a yardstick) and the least
-     time the card could take;
+     its paths give it (fused_rowadam also at a table-scale shape; the flash
+     forward and backward at head dims 16, 32 and 64, dropout rates 0 and
+     0.1, float32 and bfloat16, their dropout masks bit for bit), with times
+     (kernel, plain, one library call as a yardstick) and the least time the
+     card could take;
   3. train MF + BPR (configs/mf_default.json, lazy Adam, row_update "fused")
      on the structured synthetic split through MatrixFactorization(cfg)
      .train(data): 2 fused_rowadam launches a step, best valid and test
@@ -23,7 +25,15 @@ Phases, each printed with the seconds elapsed:
      package's to 1e-4 and the top-10 lists must match the plain path;
   7. serve configs/sasrec_default.json (maxlen 200) with weights from the
      port's initializer over synthetic data shaped like MovieLens-1M;
-  8. a JSON line of every kernel with its launches on each path, counted
+  8. train SASRec at the trained checkpoint's config through SASRec(cfg)
+     .train(data) on the structured split, twice: the flash backward once per
+     block a step, best valid and test ndcg@10 inside the JAX package's band,
+     the two runs' parameters bit-identical; then test(), predict() and
+     recommend() against the plain path, and one profiled epoch;
+  9. 20 training steps at configs/sasrec_default.json's shapes (maxlen 200,
+     lr 0.5) over the MovieLens-1M-shaped data: finite loss, exact launches;
+ 10. short trainings at head dims 16 (emb 32, 2 heads) and 64 (1 head);
+ 11. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Imports nothing of JAX or of the JAX package.
@@ -44,16 +54,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from beta_recsys_tpu_torch.config import load_config  # noqa: E402
+from beta_recsys_tpu_torch.convert import sasrec_params_from_jax  # noqa: E402
+from beta_recsys_tpu_torch.core.checkpoint import load_raw_checkpoint  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup  # noqa: E402
+from beta_recsys_tpu_torch.core.train_engine import SequenceEpochTrainer, TrainEngine  # noqa: E402
 from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
 from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E402
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
+from beta_recsys_tpu_torch.models import build_model  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
+    flash_causal_attention_bwd,
+    flash_causal_attention_bwd_reference,
     flash_causal_attention_reference,
 )
+from beta_recsys_tpu_torch.ops.kernels.philox import dropout_keep_mask  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
     bias_corrections,
     fused_rowadam,
@@ -95,6 +112,14 @@ EXPECTED_MF_METRICS = {
 SPARSE_BAND = {"valid": (0.20631387680768967, 0.002780269790554314),
                "test": (0.1743064731359482, 0.0070542290529480465)}
 DENSE_BAND = {"test": (0.1893, 0.0097)}
+# (mean, std) of SASRec's best valid and test ndcg@10 over seeds 0-9 of the
+# JAX package's training at the trained checkpoint's config on the same
+# split: `JAX_PLATFORMS=cpu python port_tools/jax_sasrec_band.py` (sample
+# std). The three TPU seeds of PARITY_RESULTS.md (test 0.1862 +- 0.0018)
+# under-state the spread: the JAX package's own seeds 5 and 6 (test
+# 0.197396, 0.197077) fall outside mean +- 3 std of that band.
+SASREC_BAND = {"valid": (0.20811834037303925, 0.004043200216505683),
+               "test": (0.1901898756623268, 0.00438203838237327)}
 # fused_rowadam against its plain version, as tests/test_rowadam_kernel.py
 # holds the JAX kernel: the same float32 arithmetic, contracted into FMAs
 # by nvcc. Untouched rows must be bit-identical.
@@ -105,6 +130,14 @@ ROWADAM_RTOL, ROWADAM_ATOL = 1e-5, 1e-6
 # they may land one bfloat16 step apart (2^-7 relative): |d| <= 2e-2 * max(1, |plain|).
 # lse stays float32 on both sides whatever the input type: the float32 limit.
 TOL = {torch.float32: {"out": 1e-4, "lse": 1e-5}, torch.bfloat16: {"out": 2e-2, "lse": 1e-5}}
+# Backward kernel against the plain backward (autograd through the plain
+# forward with the same mask), same inputs on the card, |d| <= limit *
+# max(1, |plain|). float32: sums of up to T products of size up to ~sqrt(dh)
+# in other orders, exponents in base 2. bfloat16: both compute in float32
+# and round each gradient once to bfloat16, one bfloat16 step (2^-8
+# relative) apart at most.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DROPOUT_RATE = 0.1  # SASRec's training dropout in every shipped config
 NEAR_TIE = 1e-5  # top-10 lists may differ only where plain scores are this close
 USER_BLOCK = 4096  # users per scoring call in the default config's recommend()
 # H100 SXM peaks (NVIDIA data sheet): bytes/s of HBM3, FLOP/s by input type.
@@ -219,25 +252,28 @@ def attention_bound(n, t, dh, dtype):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def check_forward(row, out, lse, ref_out, ref_lse, dtype):
+    """The forward kernel's (out, lse) against its plain version's, within
+    TOL: out absolute in float32, one bfloat16 step in bfloat16. Records
+    the largest differences in ``row``."""
+    d_out = (out.float() - ref_out.float()).abs()
+    tol = TOL[dtype]
+    scale = ref_out.float().abs().clamp(min=1.0) if dtype == torch.bfloat16 else 1.0
+    row["max_abs_err"] = float(d_out.max())
+    row["lse_max_abs_err"] = float((lse - ref_lse).abs().max())
+    if (not bool((d_out <= tol["out"] * scale).all()) or row["lse_max_abs_err"] > tol["lse"]
+            or not torch.isfinite(out.float()).all()):
+        fail(f"flash kernel disagrees with its plain version: {row}, tolerances {tol}")
+
+
 def compare_flash(n, t, dh, dtype, gen, timed):
     """Kernel vs plain version on one random (n, t, dh) input; returns a row."""
     q, k, v = (torch.randn(n, t, dh, generator=gen, device="cuda").to(dtype) for _ in range(3))
     out, lse = flash_causal_attention(q, k, v)
     ref_out, ref_lse = flash_causal_attention_reference(q, k, v)
     torch.cuda.synchronize()
-    d_out = (out.float() - ref_out.float()).abs()
-    d_lse = (lse - ref_lse).abs()
-    tol = TOL[dtype]
-    if dtype == torch.bfloat16:
-        ok_out = bool((d_out <= tol["out"] * ref_out.float().abs().clamp(min=1.0)).all())
-    else:
-        ok_out = bool((d_out <= tol["out"]).all())
-    row = {
-        "shape": [n, t, dh], "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_err": float(d_out.max()), "lse_max_abs_err": float(d_lse.max()),
-    }
-    if not ok_out or row["lse_max_abs_err"] > tol["lse"] or not torch.isfinite(out.float()).all():
-        fail(f"flash kernel disagrees with its plain version: {row}, tolerances {tol}")
+    row = {"shape": [n, t, dh], "dtype": str(dtype).replace("torch.", "")}
+    check_forward(row, out, lse, ref_out, ref_lse, dtype)
     if timed:
         row["ms"] = cuda_ms(lambda: flash_causal_attention(q, k, v))
         row["plain_ms"] = cuda_ms(lambda: flash_causal_attention_reference(q, k, v))
@@ -249,6 +285,107 @@ def compare_flash(n, t, dh, dtype, gen, timed):
             f"{row['plain_ms'] * 1e3:.1f} us, library {row['library_ms'] * 1e3:.1f} us, bound "
             f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
             f"({100 * row['bound_ms'] / row['ms']:.1f}% of bound)")
+    return row
+
+
+def attention_bwd_bound(n, t, dh, dtype):
+    """(bound_ms, bound_by) of the backward: the larger of the bytes it must
+    move (q, k, v, dout and lse read once; dq, dk, dv written once)
+    over the HBM rate and ~10 * dh FLOPs per visible (query, key) pair
+    (recomputing q.k and dout.v, and the products into dq, dk and dv) over
+    the peak rate of the input type."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = n * t * (7 * dh * itemsize + 4)
+    flops = 10 * dh * n * t * (t + 1) // 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def within(got, want, limit):
+    """max |got - want| and whether every |d| <= limit * max(1, |want|)."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= limit * want.float().abs().clamp(min=1.0)).all()) and bool(torch.isfinite(got.float()).all())
+    return float(err.max()), ok
+
+
+def kernel_keep_masks(n, t, dh, dtype, rate, seed):
+    """The keep masks the forward and the backward kernels applied, read off
+    their outputs: with q = k = 0 every visible probability is 1/(row + 1),
+    so with v (forward) or dout (backward) one-hot over a block of dh rows,
+    out[i, j] and dv[j, i] are 0 exactly where entry (i, j) was dropped."""
+    q = torch.zeros(n, t, dh, device="cuda", dtype=dtype)
+    fwd = torch.zeros(n, t, t, dtype=torch.bool, device="cuda")
+    bwd = torch.zeros_like(fwd)
+    for c0 in range(0, t, dh):
+        onehot = torch.zeros(n, t, dh, device="cuda", dtype=dtype)
+        cols = torch.arange(c0, min(c0 + dh, t), device="cuda")
+        onehot[:, cols, cols - c0] = 1.0
+        out, lse = flash_causal_attention(q, q, onehot, rate, seed)
+        _, _, dv = flash_causal_attention_bwd(q, q, onehot, lse, onehot, rate, seed)
+        fwd[:, :, cols] = out[:, :, : len(cols)] != 0
+        bwd[:, cols, :] = dv[:, :, : len(cols)].transpose(1, 2) != 0
+    return fwd, bwd
+
+
+def compare_flash_train(n, t, dh, dtype, rate, gen):
+    """Forward and backward kernels against their plain versions (autograd
+    through the plain forward) at one shape, dropout included; at rate > 0
+    the masks of both kernels bit-equal to the plain mask and the keep share
+    within 5 binomial sigmas. Returns a row."""
+    q, k, v, do = (torch.randn(n, t, dh, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    out, lse = flash_causal_attention(q, k, v, rate, seed)
+    grads = flash_causal_attention_bwd(q, k, v, lse, do, rate, seed)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref, ref_lse = flash_causal_attention_reference(*leaves, rate, seed)
+    want = torch.autograd.grad(ref, leaves, do)
+    torch.cuda.synchronize()
+    row = {"shape": [n, t, dh], "dtype": str(dtype).replace("torch.", ""), "rate": rate}
+    check_forward(row, out, lse, ref.detach(), ref_lse.detach(), dtype)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        row[f"{name}_max_abs_err"], ok = within(got, w, GRAD_TOL[dtype])
+        if not ok or got.dtype != dtype:
+            fail(f"flash backward {name} disagrees with the plain backward: {row}, limit {GRAD_TOL[dtype]}")
+    row["bwd_max_abs_err"] = max(row[f"{name}_max_abs_err"] for name in ("dq", "dk", "dv"))
+    if rate > 0:
+        fwd_mask, bwd_mask = kernel_keep_masks(n, t, dh, dtype, rate, seed)
+        want_mask = dropout_keep_mask(seed, n, t, rate) & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+        if not (torch.equal(fwd_mask, want_mask) and torch.equal(bwd_mask, want_mask)):
+            fail(f"flash dropout masks differ from the plain mask: {row}")
+        pairs = n * t * (t + 1) // 2
+        row["keep_share"] = int(want_mask.sum()) / pairs
+        sigma = (rate * (1 - rate) / pairs) ** 0.5
+        if abs(row["keep_share"] - (1 - rate)) > 5 * sigma:
+            fail(f"keep share {row['keep_share']} is more than 5 sigmas ({sigma:.2e}) from {1 - rate}: {row}")
+    return row
+
+
+def time_flash_train(n, t, dh, dtype, rate, gen):
+    """Times of the forward and backward kernels, their plain versions and
+    SDPA (forward and backward, is_causal, rate 0: a yardstick the port
+    never calls) at one shape, with the bounds. Returns a row."""
+    q, k, v, do = (torch.randn(n, t, dh, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    _, lse = flash_causal_attention(q, k, v, rate, seed)
+    row = {"shape": [n, t, dh], "dtype": str(dtype).replace("torch.", ""), "rate": rate}
+    row["fwd_ms"] = cuda_ms(lambda: flash_causal_attention(q, k, v, rate, seed))
+    row["fwd_plain_ms"] = cuda_ms(lambda: flash_causal_attention_reference(q, k, v, rate, seed))
+    row["bwd_ms"] = cuda_ms(lambda: flash_causal_attention_bwd(q, k, v, lse, do, rate, seed))
+    row["bwd_plain_ms"] = cuda_ms(lambda: flash_causal_attention_bwd_reference(q, k, v, lse, do, rate, seed))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["fwd_library_ms"] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True)
+    row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True))
+    row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(n, t, dh, dtype)
+    row["bwd_bound_ms"], row["bwd_bound_by"] = attention_bwd_bound(n, t, dh, dtype)
+    log("flash", f"{n}x{t}x{dh} {row['dtype']} rate {rate}: forward kernel {row['fwd_ms'] * 1e3:.1f} us, plain "
+        f"{row['fwd_plain_ms'] * 1e3:.1f} us, SDPA {row['fwd_library_ms'] * 1e3:.1f} us, bound "
+        f"{row['fwd_bound_ms'] * 1e3:.1f} us by {row['fwd_bound_by']}; backward kernel {row['bwd_ms'] * 1e3:.1f} us, "
+        f"plain {row['bwd_plain_ms'] * 1e3:.1f} us, SDPA {row['bwd_library_ms'] * 1e3:.1f} us, bound "
+        f"{row['bwd_bound_ms'] * 1e3:.1f} us by {row['bwd_bound_by']} "
+        f"({100 * row['bwd_bound_ms'] / row['bwd_ms']:.1f}% of bound)")
     return row
 
 
@@ -581,13 +718,9 @@ def serve_checkpoint(root_dir):
     return launches
 
 
-def serve_default_config(seed, root_dir):
-    """Phase 4: configs/sasrec_default.json, random weights, ML-1M shape.
+def serve_default_config(seed, root_dir, data):
+    """Phase 7: configs/sasrec_default.json, random weights, ML-1M shape.
     Returns the flash kernel's launches in the timed recommend()."""
-    t0 = time.perf_counter()
-    data = SequentialData(ml1m_shaped_split(seed))
-    log("default", f"synthetic split: {data.n_users} users, {data.n_items} items, "
-        f"{len(data.train[DEFAULT_USER_COL])} train rows ({time.perf_counter() - t0:.2f} s)")
     cfg = load_config(DEFAULT_CONFIG).replace(system={"root_dir": root_dir})
     gen = torch.Generator().manual_seed(seed)
     rec = SASRec(cfg).init(data, gen)
@@ -616,6 +749,158 @@ def serve_default_config(seed, root_dir):
     return launches
 
 
+def sasrec_config(seed, root_dir, **model):
+    """The trained SASRec checkpoint's config (emb 64, 2 blocks, 2 heads,
+    maxlen 100, batch 128, dropout 0.1, adam at lr 1e-3, early stop after 20
+    epochs without gain, at most 200) on the structured split, one
+    evaluation copy."""
+    return load_config(CHECKPOINT).replace(system={"root_dir": root_dir, "seed": seed}, model=model)
+
+
+def train_sasrec(phase, seed, root_dir, data, **model):
+    """Train SASRec through SASRec(cfg).train(data); returns the recommender,
+    the train result and the flash launches counted from 0 around train()
+    alone: forward launches inside the epoch trainer's runs ("steps"), the
+    other forward launches (the evaluations after each epoch, "eval") and
+    backward launches ("bwd"), each checked against what the path needs."""
+    rec = SASRec(sasrec_config(seed, root_dir, **model))
+    counts = {"steps": 0}
+    run = SequenceEpochTrainer.run
+
+    def counted_run(trainer, generator):
+        before = flash_causal_attention.launches
+        loss = run(trainer, generator)
+        counts["steps"] += flash_causal_attention.launches - before
+        return loss
+
+    SequenceEpochTrainer.run = counted_run
+    flash_causal_attention.launches = flash_causal_attention_bwd.launches = 0
+    try:
+        result = rec.train(data)
+        torch.cuda.synchronize()
+    finally:
+        SequenceEpochTrainer.run = run
+    counts["eval"] = flash_causal_attention.launches - counts["steps"]
+    counts["bwd"] = flash_causal_attention_bwd.launches
+    engine, blocks = rec.engine, rec.model.num_blocks
+    epochs = len(engine.bookkeeper.history)
+    steps = epochs * engine.epoch_fn.num_batches
+    evaluators = (engine.valid_evaluator is not None) + (engine.test_evaluator is not None)
+    check_launches("flash backward", phase, counts["bwd"], blocks * steps)
+    check_launches("flash forward in training steps", phase, counts["steps"], blocks * steps)
+    check_launches("flash forward in evaluations", phase, counts["eval"], blocks * evaluators * epochs)
+    rates = [engine.epoch_fn.num_batches * engine.epoch_fn.batch_size / s for s in engine.epoch_seconds]
+    log(phase, f"{epochs} epochs of {engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size} sequences "
+        f"(maxlen {rec.model.maxlen}, dh {rec.model.emb_dim // rec.model.num_heads}), best epoch "
+        f"{result['best_epoch']}, train() {result['run_time']:.2f} s; sequences/s per epoch: "
+        + ", ".join(f"{r:.0f}" for r in rates))
+    if len(rates) > 1:
+        log(phase, f"sequences/s after the first epoch: median {np.median(rates[1:]):.1f}, "
+            f"min {min(rates[1:]):.1f}, max {max(rates[1:]):.1f}")
+    return rec, result, counts
+
+
+def check_sasrec_serving(phase, rec, data, ckpt_dir):
+    """test(), predict() and recommend(k=10) of a trained SASRec, as phase 6
+    checks them: well-formed, and against the plain path loaded from the
+    port-trained checkpoint. Returns the test() row."""
+    res = rec.test()
+    if not all(np.isfinite(res[key]) for key in EXPECTED_METRICS):
+        fail(f"{phase}: test() gave non-finite metrics {res}")
+    pairs = {c: data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+    scores = rec.predict(pairs)
+    if scores.shape != (300,) or not np.isfinite(scores).all():
+        fail(f"{phase}: predict() gave {scores.shape} with non-finite values")
+    k = 10
+    recs = rec.recommend(k=k)
+    torch.cuda.synchronize()
+    check_recommendations(recs, data, k, data.n_users)
+    plain = SASRec(rec.config.replace(model={"fused_attention": False})).load(ckpt_dir, data)
+    plain_res = plain.test()
+    gap = max(abs(res[key] - plain_res[key]) for key in EXPECTED_METRICS)
+    err = float(np.abs(scores - plain.predict(pairs)).max())
+    if gap > METRIC_TOL or err > 1e-4:
+        fail(f"{phase}: the kernel path differs from the plain path: metrics by {gap}, predict() by {err}")
+    differ = same_top_k(recs, plain.recommend(k=k), k)
+    log(phase, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_METRICS)
+        + f" (plain path within {gap:.2g}); predict(300 pairs) max |d| vs plain {err:.3g}; recommend(k={k}) "
+        f"{data.n_users} users, no train item, {differ} rows differ from plain at near-ties")
+    return res
+
+
+def sasrec_training(seed, root_dir):
+    """Phase 8, the slice's main path. Returns the flash launches of the two
+    trainings ({"sasrec_train": counts, "sasrec_train_again": counts})."""
+    data = SequentialData(load_split_data(SPLIT, n_test=1))
+    rec, result, counts = train_sasrec("sasrec-train", seed, root_dir, data)
+    res = check_sasrec_serving("sasrec-train", rec, data, result["model_save_dir"])
+    log("sasrec-train", in_band("best valid ndcg@10", result["valid_metric"], SASREC_BAND["valid"]) + "; "
+        + in_band("test ndcg@10", res["ndcg@10"], SASREC_BAND["test"]))
+
+    again, again_result, again_counts = train_sasrec("sasrec-train-again", seed, root_dir, data)
+    best = [r.model.state_dict() for r in (rec, again)]
+    last = [sasrec_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
+            for r in (result, again_result)]
+    same = (all(torch.equal(best[0][name], best[1][name]) for name in best[0])
+            and all(torch.equal(last[0][name], last[1][name]) for name in last[0])
+            and (result["best_epoch"], result["valid_metric"]) == (again_result["best_epoch"], again_result["valid_metric"]))
+    if not same:
+        fail("two trainings of one seed gave different parameters")
+    log("sasrec-train", f"a second training of seed {seed} gave the same best and last parameters bit for bit "
+        f"(best epoch {result['best_epoch']}, valid ndcg@10 {result['valid_metric']:.6f})")
+    log("sasrec-train", "one more epoch: " + device_breakdown(
+        lambda: float(rec.engine.epoch_fn.run(rec.engine.generator)), top=8, kernel="flash_"))
+    return {"sasrec_train": counts, "sasrec_train_again": again_counts}
+
+
+def sasrec_shipped_shape(seed, root_dir, data, n_steps=20):
+    """Phase 9: ``n_steps`` training steps at configs/sasrec_default.json's
+    shapes (maxlen 200, emb 64, 2 heads, batch 128, lr 0.5 as shipped) over
+    the MovieLens-1M-shaped data, after one warm-up step. Returns the flash
+    launches of the counted steps."""
+    cfg = load_config(DEFAULT_CONFIG).replace(system={"root_dir": root_dir, "seed": seed})
+    device = torch.device("cuda")
+    model = build_model(cfg.model, data.n_users, data.n_items, device=device)
+    engine = TrainEngine(cfg, device).build(model, data)
+    trainer = engine.epoch_fn
+    rows, users, neg0 = trainer.form(engine.generator)
+    if trainer.num_batches < n_steps + 1:
+        fail(f"the shipped shape has {trainer.num_batches} batches an epoch, fewer than {n_steps + 1}")
+    trainer.run_batches(rows[:1], users[:1], neg0[:1], generator=engine.generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_causal_attention.launches = flash_causal_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    loss = float(trainer.run_batches(rows[1:n_steps + 1], users[1:n_steps + 1], neg0[1:n_steps + 1],
+                                     generator=engine.generator))
+    secs = time.perf_counter() - t0
+    counts = {"steps": flash_causal_attention.launches, "bwd": flash_causal_attention_bwd.launches}
+    check_launches("flash forward in training steps", "shipped", counts["steps"], model.num_blocks * n_steps)
+    check_launches("flash backward", "shipped", counts["bwd"], model.num_blocks * n_steps)
+    if not np.isfinite(loss):
+        fail(f"the shipped shape's mean loss over {n_steps} steps is {loss}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log("shipped", f"{n_steps} steps x {trainer.batch_size} sequences (maxlen {model.maxlen}, {data.n_items} items, "
+        f"lr {cfg.model.lr}): mean loss {loss:.4f}, {n_steps * trainer.batch_size / secs:.1f} sequences/s "
+        f"({secs * 1e3 / n_steps:.2f} ms a step), peak memory {peak_gib:.3f} GiB")
+    return counts
+
+
+def sasrec_head_dims(seed, root_dir):
+    """Phase 10: two epochs of training and a test() at head dims 16 (emb 32,
+    2 heads) and 64 (emb 64, 1 head), each kernel's other instantiations.
+    Returns their flash launches."""
+    data = SequentialData(load_split_data(SPLIT, n_test=1))
+    out = {}
+    for name, model in (("dh16", {"emb_dim": 32, "num_heads": 2}), ("dh64", {"num_heads": 1})):
+        rec, result, out[name] = train_sasrec(name, seed, root_dir, data, max_epoch=2, **model)
+        res = rec.test()
+        if not all(np.isfinite(res[key]) for key in EXPECTED_METRICS):
+            fail(f"{name}: test() gave non-finite metrics {res}")
+        log(name, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_METRICS))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -632,7 +917,7 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    built = _build.build_all(["flash_attention_fwd", "rowadam"])
+    built = _build.build_all(["flash_attention_fwd", "flash_attention_bwd", "rowadam"])
     wall = time.perf_counter() - t0
     for name, (lib, secs, report) in built.items():
         log("build", f"{name}: {os.path.relpath(lib, REPO)} in {secs:.2f} s")
@@ -656,6 +941,27 @@ def main():
         rows[(8192, 200, dtype)] = row
         log("flash", json.dumps(row))
 
+    # Training: forward and backward at a batch of 128 sequences x 2 heads,
+    # every head dim, both dropout rates, both types; then times at the
+    # checkpoint config's shape (T 100) and the shipped config's (T 200),
+    # and at dh 16 (emb 32, 2 heads) and dh 64 (1 head).
+    train_rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (16, 32, 64):
+            for t in (1, 77, 100, 200):
+                for rate in (0.0, DROPOUT_RATE):
+                    train_rows.append(compare_flash_train(256, t, dh, dtype, rate, gen))
+    for row in train_rows:
+        log("flash-train", json.dumps(row))
+    worst = {name: max(r["bwd_max_abs_err"] for r in train_rows if r["dtype"] == name) for name in ("float32", "bfloat16")}
+    log("flash-train", f"{len(train_rows)} shapes: forward and backward within their limits, masks bit-equal; "
+        f"largest backward |d| {worst}")
+    timed_train = {
+        (n, t, dh, rate): time_flash_train(n, t, dh, torch.float32, rate, gen)
+        for n, t, dh, rate in ((256, 100, 32, DROPOUT_RATE), (256, 100, 32, 0.0), (256, 200, 32, DROPOUT_RATE),
+                               (256, 200, 32, 0.0), (256, 100, 16, DROPOUT_RATE), (128, 100, 64, DROPOUT_RATE))
+    }
+
     # The MF path's two launches a step (user_emb with L = B, item_emb with
     # L = 2B at B = 400), a table-scale shape, and ragged or narrow widths.
     rowadam_rows = {
@@ -668,17 +974,31 @@ def main():
     for key, row in rowadam_rows.items():
         log("rowadam", f"{key}: {json.dumps(row)}")
 
+    t0 = time.perf_counter()
+    ml1m = SequentialData(ml1m_shaped_split(args.seed))
+    log("default", f"synthetic split: {ml1m.n_users} users, {ml1m.n_items} items, "
+        f"{len(ml1m.train[DEFAULT_USER_COL])} train rows ({time.perf_counter() - t0:.2f} s)")
     with tempfile.TemporaryDirectory() as root_dir:
         adam_launches = {"mf_sparse_train": mf_sparse_training(args.seed, root_dir)}
         mf_dense_training(args.seed, root_dir)
         serve_mf_checkpoint(root_dir)
         launches = {
             "checkpoint": serve_checkpoint(root_dir),
-            "default": serve_default_config(args.seed, root_dir),
+            "default": serve_default_config(args.seed, root_dir, ml1m),
         }
+        train_counts = sasrec_training(args.seed, root_dir)
+        train_counts["shipped_shape"] = sasrec_shipped_shape(args.seed, root_dir, ml1m)
+        train_counts.update(sasrec_head_dims(args.seed, root_dir))
+    for path, counts in train_counts.items():
+        launches[f"{path}/steps"] = counts["steps"]
+        if "eval" in counts:
+            launches[f"{path}/eval"] = counts["eval"]
+    bwd_launches = {path: counts["bwd"] for path, counts in train_counts.items()}
 
     main_row = rows[(1886, 100, torch.float32)]
+    train_row = timed_train[(256, 100, 32, DROPOUT_RATE)]
     path_row = rowadam_rows["item_emb"]
+    f32_train = [r for r in train_rows if r["dtype"] == "float32"]
     kernels = [{
         "name": "flash_causal_attention_fwd",
         "route": "cuda",
@@ -686,7 +1006,8 @@ def main():
         "replaces": "beta_recsys_tpu/ops/pallas/flash_attention.py:57",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for key, r in rows.items() if key[2] == torch.float32),
+        "max_abs_err": max([r["max_abs_err"] for key, r in rows.items() if key[2] == torch.float32]
+                           + [r["max_abs_err"] for r in f32_train]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -694,6 +1015,28 @@ def main():
         "library_ms": main_row["library_ms"],
         "shape": main_row["shape"],
         "dtype": main_row["dtype"],
+        "timed_training": [{"shape": r["shape"], "rate": r["rate"], "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+                            "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
+                            "library_ms": r["fwd_library_ms"]} for r in timed_train.values()],
+    }, {
+        "name": "flash_causal_attention_bwd",
+        "route": "cuda",
+        "source": "beta_recsys_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "beta_recsys_tpu/ops/pallas/flash_attention.py:80",
+        "launches": sum(bwd_launches.values()),
+        "launches_by_path": bwd_launches,
+        "max_abs_err": max(r["bwd_max_abs_err"] for r in f32_train),
+        "ms": train_row["bwd_ms"],
+        "plain_ms": train_row["bwd_plain_ms"],
+        "bound_ms": train_row["bwd_bound_ms"],
+        "bound_by": train_row["bwd_bound_by"],
+        "library_ms": train_row["bwd_library_ms"],
+        "shape": train_row["shape"],
+        "dtype": train_row["dtype"],
+        "rate": train_row["rate"],
+        "timed": [{"shape": r["shape"], "rate": r["rate"], "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+                   "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
+                   "library_ms": r["bwd_library_ms"]} for r in timed_train.values()],
     }, {
         "name": "fused_rowadam",
         "route": "cuda",

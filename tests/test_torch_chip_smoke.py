@@ -51,6 +51,25 @@ def test_attention_bound():
     assert by == "operations" and ms == pytest.approx(4 * 32 * 12080 * 200 * 201 / 2 / 67e12 * 1e3)
 
 
+def test_attention_bwd_bound():
+    """The backward reads q, k, v, dout, lse and writes dq, dk, dv;
+    ~10 * dh FLOPs a visible pair. At the training shape bytes bound it, at
+    the shipped config's T = 200 the operations do."""
+    ms, by = chip_smoke.attention_bwd_bound(256, 100, 32, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(256 * 100 * (7 * 32 * 4 + 4) / 3.35e12 * 1e3)
+    ms, by = chip_smoke.attention_bwd_bound(256, 200, 32, torch.float32)
+    assert by == "operations" and ms == pytest.approx(10 * 32 * 256 * 200 * 201 / 2 / 67e12 * 1e3)
+
+
+def test_sasrec_config_is_the_trained_checkpoints():
+    cfg = chip_smoke.sasrec_config(3, "/nowhere", num_heads=1)
+    assert cfg.system.seed == 3 and cfg.system.root_dir == "/nowhere"
+    assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
+    m = cfg.model
+    assert (m.emb_dim, m.num_blocks, m.num_heads, m.maxlen, m.batch_size) == (64, 2, 1, 100, 128)
+    assert (m.lr, m.dropout_rate, m.l2_emb, m.max_n_update, m.max_epoch) == (1e-3, 0.1, 0.0, 20, 200)
+
+
 def test_rowadam_bound():
     ms, by = chip_smoke.rowadam_bound(700, 64, 800)
     assert by == "bytes" and ms == pytest.approx((700 * 7 * 64 * 4 + 800 * 8) / 3.35e12 * 1e3)

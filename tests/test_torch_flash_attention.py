@@ -56,12 +56,16 @@ def test_dispatch_routes_cuda_to_kernel_and_cpu_to_plain():
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_dropout_rate_raises(device):
-    with pytest.raises(NotImplementedError, match="dropout"):
-        kernel_route(torch.device(device), 0.1)
+    """A dropout rate outside [0, 1) raises on either device; a rate inside
+    it takes the device's route."""
+    for rate in (-0.1, 1.0, 1.5):
+        with pytest.raises(ValueError, match="dropout"):
+            kernel_route(torch.device(device), rate)
+    assert kernel_route(torch.device(device), 0.1) == ("kernel" if device == "cuda" else "plain")
     if device == "cpu":
         q = torch.zeros(1, 2, 32)
-        with pytest.raises(NotImplementedError):
-            flash_causal_attention(q, q, q, rate=0.1)
+        with pytest.raises(ValueError, match="dropout"):
+            flash_causal_attention(q, q, q, rate=1.0)
 
 
 @pytest.mark.parametrize("fused", [True, False])
