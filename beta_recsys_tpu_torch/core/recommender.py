@@ -2,7 +2,9 @@
 test() / predict() / recommend().
 
 Counterpart of ``Recommender`` in ``beta_recsys_tpu/core/recommender.py``.
-It runs on the GPU unless ``device="cpu"`` is passed. After ``train`` the
+It runs on the GPU unless ``device="cpu"`` is passed; ``mesh_devices``
+names the devices of ``system.mesh`` where they are not every CUDA device
+(``TrainEngine``). After ``train`` the
 model holds the best checkpoint's parameters, the model ``test()`` reports,
 as the JAX package serves ``_serving_params(use_best=True)``. A frame is a
 dict of numpy columns (``datasets/split_io.py``); ``recommend`` returns such
@@ -31,13 +33,14 @@ class Recommender:
     model_name = None  # registry key override; defaults to the config's model
     data_class = BaseData
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, mesh_devices=None):
         if isinstance(config, str):
             config = load_config(config)
         elif not isinstance(config, Config):
             config = Config(config)
         self.config = config
         self.device = resolve_device(device)
+        self.mesh_devices = mesh_devices
         fp32_matmuls()
         self.model = None
         self.data = None
@@ -83,21 +86,22 @@ class Recommender:
         first validation copy every epoch."""
         self.data = data
         self.model = self._build_model(data.n_users, data.n_items)
-        self.engine = TrainEngine(self.config, self.device)
+        self.engine = TrainEngine(self.config, self.device, self.mesh_devices)
         valid_cand = data.eval_candidates(data.valid[0]) if data.valid else None
         test_cand = data.eval_candidates(data.test[0]) if data.test else None
         self.engine.build(self.model, data, valid_cand, test_cand)
         result = self.engine.train()
         self.run_time = result["run_time"]
         if self.engine.has_checkpoint("best"):
-            self.model.load_state_dict(self.params_from_jax(self.engine.load_params()))
+            self.model.load_trimmed(self.params_from_jax(self.engine.load_params()))
         self.model.eval()
         return result
 
     def load(self, model_dir, data=None):
         """Build the model from a JAX checkpoint directory: n_users/n_items
         from ``metadata.json``, parameters from ``raw["params"]`` of
-        ``checkpoint.msgpack``. Models whose scoring needs derived artifacts
+        ``checkpoint.msgpack`` (row tables a sharded run padded are cut back
+        to the real rows). Models whose scoring needs derived artifacts
         (sequence contexts) need ``data``."""
         meta = load_metadata(model_dir)
         n_users, n_items = meta.get("n_users"), meta.get("n_items")
@@ -112,7 +116,7 @@ class Recommender:
             self.data = data
         self.model = self._build_model(int(n_users), int(n_items))
         raw = load_raw_checkpoint(model_dir)
-        self.model.load_state_dict(self.params_from_jax(raw["params"]))
+        self.model.load_trimmed(self.params_from_jax(raw["params"]))
         self.model.eval()
         return self
 

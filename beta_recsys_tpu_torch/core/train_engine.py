@@ -7,7 +7,9 @@ pairwise (BPR) and sequence (SASRec) batch kinds: ``make_optimizer``,
 counterpart of ``make_sequence_epoch_fn``) and ``TrainEngine`` (``build``,
 ``train``, ``save_checkpoint``). Models with a row protocol and
 ``"sparse_optim": true`` train through the lazy-Adam trainer of
-``core/sparse_optim.py``.
+``core/sparse_optim.py``; with ``system.mesh`` through its row-sharded
+counterpart on a device mesh (``ShardedSparseEpochTrainer``), routed as the
+JAX package routes it.
 
 As in the JAX package, an epoch's batches are formed once before its step
 loop (the row draw or permutation, and the negatives), drawn on the device
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..convert import nest_dotted, params_to_jax
+from ..device import resolve_device
 from ..ops.sampling import (
     make_membership_test,
     sample_negatives_rejection,
@@ -39,6 +42,11 @@ from .eval_engine import EvalBookkeeper, RankingEvaluator
 
 # Dense positive bitmasks are used for rejection sampling up to this many cells.
 _BITMASK_CELL_LIMIT = 64 * 1024 * 1024
+
+# Above this many bytes of row tables, "sparse_optim": "auto" on a mesh of
+# several devices routes to the row-sharded sparse trainer, as the JAX package
+# does: a dense data-parallel step would all-reduce the full table gradient.
+AUTO_SPARSE_TABLE_BYTES = 8 * 1024 * 1024
 
 
 def make_optimizer(model_cfg, params):
@@ -58,11 +66,13 @@ def make_optimizer(model_cfg, params):
     raise ValueError(f"Unknown optimizer {name}")
 
 
-def make_negative_sampler(data, mode="auto", device="cpu"):
+def make_negative_sampler(data, mode="auto", device=None):
     """fn(generator, users, shape) -> negative item ids on the users' device.
+    The positives live on ``device`` (the GPU when None: ``resolve_device``).
 
     mode: 'uniform' (no rejection), 'bitmask', 'csr', or 'auto' (bitmask for
     small catalogs, the CSR membership test otherwise)."""
+    device = resolve_device(device)
     n_items = data.n_items
     if mode == "uniform":
         return lambda gen, users, shape: uniform_negatives(gen, shape, n_items, users.device)
@@ -219,11 +229,20 @@ class SequenceEpochTrainer:
 
 
 class TrainEngine:
-    """Run lifecycle: build the trainer, train with early stop, checkpoint."""
+    """Run lifecycle: build the trainer, train with early stop, checkpoint.
 
-    def __init__(self, config, device):
+    ``system.mesh`` = {"data": N, "model": M} (or "auto": every device on
+    "data") trains on a mesh of ``mesh_devices``: by default every CUDA device,
+    ``device`` first, and too few raise. A mesh whose shards repeat a device
+    exists only when ``mesh_devices`` names it so (``["cuda:0"] * 4``,
+    ``["cpu"] * 4``)."""
+
+    def __init__(self, config, device, mesh_devices=None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh_devices = mesh_devices
+        self.mesh = None
+        self.sharded = False
         sys_cfg, model_cfg = config.system, config.model
         timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         tag = "".join(random.SystemRandom().choices(string.ascii_lowercase, k=6))
@@ -247,16 +266,52 @@ class TrainEngine:
             )
         model.init_weights(torch.Generator().manual_seed(self.seed))
         kind = model.batch_kind
+        self.mesh = self._make_mesh(sys_cfg.get("mesh"))
         sparse_req = model_cfg.get("sparse_optim", "auto")
         sparse_capable = hasattr(model, "row_tables") and kind == "pairwise"
-        # "auto" is the dense path on one device, as in the JAX package.
-        self.sparse_optim = sparse_req != "auto" and bool(sparse_req) and sparse_capable
-        if sparse_req not in ("auto", False) and not self.sparse_optim:
-            print(f"[warn] sparse_optim requested but batch_kind={kind} has no row protocol; "
-                  "using the dense path")
+        if sparse_req == "auto":
+            # The dense path, unless a mesh of several devices would all-reduce
+            # more than AUTO_SPARSE_TABLE_BYTES of table gradient each step.
+            params = dict(model.named_parameters())
+            table_bytes = sum(params[t].numel() * params[t].element_size() for t in model.row_tables()) \
+                if sparse_capable else 0
+            self.sparse_optim = (sparse_capable and self.mesh is not None and self.mesh.size > 1
+                                 and table_bytes > AUTO_SPARSE_TABLE_BYTES)
+            if self.sparse_optim:
+                print(f"[auto] routing to the row-sharded sparse trainer (row tables {table_bytes / 1e6:.1f} MB > "
+                      f"{AUTO_SPARSE_TABLE_BYTES / 1e6:.0f} MB on a {self.mesh.size}-device mesh). "
+                      "Set sparse_optim=false to force the dense path.")
+        else:
+            self.sparse_optim = bool(sparse_req) and sparse_capable
+            if sparse_req and not self.sparse_optim:
+                print(f"[warn] sparse_optim requested but batch_kind={kind} has no row protocol; "
+                      "using the dense path")
+        self.sharded = self.sparse_optim and self.mesh is not None
+        if self.mesh is not None and self.mesh.size > 1 and not self.sharded:
+            raise NotImplementedError(
+                f"system.mesh {self.mesh.shape} on the dense path (model {model_cfg.get('model')}, batch kind "
+                f"{kind}, sparse_optim {sparse_req!r}): the port trains on a mesh through the row-sharded sparse "
+                "trainer only; the dense data-parallel path is ROADMAP.md, section 1 item 8"
+            )
         neg_sampler = make_negative_sampler(data, model_cfg.get("neg_sampler", "auto"), self.device)
         batch_size = int(model_cfg.get("batch_size", 256))
-        if self.sparse_optim:
+        if self.sharded:
+            from .sparse_optim import ShardedSparseEpochTrainer
+
+            # The bucketed exchange moves n_model / capacity_factor times fewer
+            # bytes and is exact while unique owned ids fit; the JAX package
+            # makes it the default from a model axis of 4.
+            n_model = self.mesh.shape["model"]
+            self.epoch_fn = ShardedSparseEpochTrainer(
+                model, data.train_arrays(), batch_size, neg_sampler, lr=float(model_cfg.get("lr", 1e-3)),
+                mesh=self.mesh, dense_optimizer=lambda params: make_optimizer(model_cfg, params),
+                lookup_strategy=model_cfg.get("lookup_strategy", "psum"),
+                grad_exchange=model_cfg.get("grad_exchange", "bucketed" if n_model >= 4 else "allgather"),
+                capacity_factor=float(model_cfg.get("capacity_factor", 2.0)),
+            )
+            self.optimizer = self.epoch_fn.dense_optimizers[0][0]
+            self.dropped_grad_rows = self.lookup_overflow = 0
+        elif self.sparse_optim:
             from .sparse_optim import SparseEpochTrainer
 
             tables = model.row_tables()
@@ -303,6 +358,8 @@ class TrainEngine:
             t0 = time.perf_counter()
             loss = float(self.epoch_fn.run(self.generator))  # the epoch's one host read
             self.epoch_seconds.append(time.perf_counter() - t0)
+            if self.sharded:
+                self._after_sharded_epoch()
             valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
             test_result = self.test_evaluator.evaluate() if self.test_evaluator else {}
             improved = self.bookkeeper.update(epoch, valid_result, test_result) if valid_result else False
@@ -327,6 +384,37 @@ class TrainEngine:
             "model_save_dir": self.checkpoint_dir,
             "run_time": self.run_time,
         }
+
+    def _make_mesh(self, mesh_cfg):
+        """The mesh of ``system.mesh``, or None without one."""
+        if not mesh_cfg:
+            return None
+        from ..parallel.mesh import default_devices, make_mesh
+
+        devices = default_devices(self.device) if self.mesh_devices is None else self.mesh_devices
+        if mesh_cfg == "auto":
+            mesh = make_mesh(devices=devices)
+        else:
+            mesh = make_mesh(int(mesh_cfg.get("data", 1)), int(mesh_cfg.get("model", 1)), devices)
+        if mesh.devices[0][0] != self.device:
+            raise ValueError(f"the mesh starts at {mesh.devices[0][0]}, the model lives on {self.device}")
+        return mesh
+
+    def _after_sharded_epoch(self):
+        """Bring the tables' real rows to the model for evaluation, and warn
+        when a bucket overflowed (never silent): the bucketed exchange dropped
+        gradient rows, or the ring lookup served batch positions as zero rows."""
+        self.epoch_fn.assemble()
+        dropped, overflow = int(self.epoch_fn.dropped), int(self.epoch_fn.lookup_overflow)
+        if dropped > self.dropped_grad_rows:
+            print(f"WARNING: sharded-sparse bucketed exchange dropped {dropped - self.dropped_grad_rows} gradient "
+                  f"rows this epoch (cumulative {dropped}) — raise model config capacity_factor or set "
+                  "grad_exchange='allgather'")
+        if overflow > self.lookup_overflow:
+            print(f"WARNING: sharded-sparse ring lookup served {overflow - self.lookup_overflow} batch positions as "
+                  f"zero rows this epoch (cumulative {overflow}) — raise model config capacity_factor or set "
+                  "lookup_strategy='psum'")
+        self.dropped_grad_rows, self.lookup_overflow = dropped, overflow
 
     # -- checkpoints ----------------------------------------------------------------
 
@@ -361,8 +449,11 @@ class TrainEngine:
         The file holds ``params`` in the JAX layout, the optimizer state
         (``_opt_state_tree``) and the port's generator state as ``rng``."""
         ckpt_dir = self.checkpoint_dir if kind == "best" else os.path.join(self.checkpoint_dir, "last")
+        # A sharded run writes its row tables padded to the model axis, as the
+        # JAX package does.
+        params = self.epoch_fn.padded_params() if self.sharded else self.model.state_dict()
         save_checkpoint(ckpt_dir, {
-            "params": params_to_jax(self.model.state_dict()),
+            "params": params_to_jax(params),
             "opt_state": self._opt_state_tree(),
             "rng": self.generator.get_state().numpy(),
         })

@@ -30,6 +30,20 @@ class RecModel(nn.Module):
         self.emb_dim = int(config.get("emb_dim", 64))
         self.stddev = float(config.get("stddev", 0.1))
 
+    def load_trimmed(self, state_dict):
+        """``load_state_dict`` of a state whose row tables may carry pad rows
+        (a sharded run pads them to a multiple of the model axis:
+        ``parallel/embedding.pad_table``). Rows past the model's own are cut, so
+        pad items are never scored: the port's place for the JAX package's
+        ``user_item_embeddings_trimmed``, since its models never hold pad rows."""
+        own = self.state_dict()
+        tables = self.row_tables() if hasattr(self, "row_tables") else {}
+        state = {
+            name: value[: own[name].shape[0]] if name in tables and value.shape[1:] == own[name].shape[1:] else value
+            for name, value in state_dict.items()
+        }
+        return self.load_state_dict(state)
+
     def retrieval_score_transform(self, scores):
         """Map raw factorized retrieval scores onto ``score_pairs``' scale.
         Identity unless a model's ``score_pairs`` adds a nonlinearity."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (beta_recsys_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only]
 
 Phases, each printed with the seconds elapsed:
   0. environment: the card (nvidia-smi), torch and CUDA versions, TF32 flags;
@@ -33,10 +33,29 @@ Phases, each printed with the seconds elapsed:
   9. 20 training steps at configs/sasrec_default.json's shapes (maxlen 200,
      lr 0.5) over the MovieLens-1M-shaped data: finite loss, exact launches;
  10. short trainings at head dims 16 (emb 32, 2 heads) and 64 (1 head);
- 11. a JSON line of every kernel with its launches on each path, counted
+ 11. the ring all-gather kernel against its plain version, bit for bit, with
+     every rank on cuda:0 (loopback): n 2/4/8 x C 8/200/400/800/8192 x d 64,
+     100 calls back to back each, with times and the hop latency;
+ 12. on 4 cards or more (with --chips 4): `nvidia-smi topo -m`, peer access,
+     and phase 11 across cuda:0-3 against torch.cuda.nccl.all_gather;
+ 13. the slice's main path: MatrixFactorization(cfg, mesh_devices=["cuda:0"]
+     * 4).train(data) on a (1, 4) mesh, lazy Adam, ring lookup, 3 epochs,
+     bit-equal to the one-device lazy-Adam trainer, exact ring launches, no
+     bucket overflow; then test() and recommend() (no pad item); on 4 cards
+     again on cuda:0-3;
+ 14. 3 epochs on a (2, 2) mesh through run_batches against the one-device
+     trainer, within MESH_TOL (on 4 cards again on cuda:0-3);
+ 15. 20 steps on a (1, 4) mesh of cuda:0 with 1,000,000-row tables and
+     batches of 16,384: time a step and the ring's share of device time;
+ 16. on 4 cards: the slice trained to early stop on cuda:0-3, inside the JAX
+     package's lazy-Adam band;
+ 17. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-before it. Imports nothing of JAX or of the JAX package.
+before it. With --sharded-only it builds the ring kernel alone and runs
+phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
+4-card call's); with --ring-only, phases 11-12 and no result line (it
+drives no path). Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -46,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -56,8 +76,17 @@ sys.path.insert(0, REPO)
 from beta_recsys_tpu_torch.config import load_config  # noqa: E402
 from beta_recsys_tpu_torch.convert import sasrec_params_from_jax  # noqa: E402
 from beta_recsys_tpu_torch.core.checkpoint import load_raw_checkpoint  # noqa: E402
-from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup  # noqa: E402
-from beta_recsys_tpu_torch.core.train_engine import SequenceEpochTrainer, TrainEngine  # noqa: E402
+from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
+    ShardedSparseEpochTrainer,
+    SparseEpochTrainer,
+    _segment_dedup,
+)
+from beta_recsys_tpu_torch.core.train_engine import (  # noqa: E402
+    SequenceEpochTrainer,
+    TrainEngine,
+    make_negative_sampler,
+    make_optimizer,
+)
 from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
 from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E402
@@ -71,11 +100,13 @@ from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention_reference,
 )
 from beta_recsys_tpu_torch.ops.kernels.philox import dropout_keep_mask  # noqa: E402
+from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather, ring_allgather_reference  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
     bias_corrections,
     fused_rowadam,
     fused_rowadam_reference,
 )
+from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import MatrixFactorization, SASRec  # noqa: E402
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
     DEFAULT_ITEM_COL,
@@ -140,9 +171,33 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DROPOUT_RATE = 0.1  # SASRec's training dropout in every shipped config
 NEAR_TIE = 1e-5  # top-10 lists may differ only where plain scores are this close
 USER_BLOCK = 4096  # users per scoring call in the default config's recommend()
-# H100 SXM peaks (NVIDIA data sheet): bytes/s of HBM3, FLOP/s by input type.
+# H100 SXM peaks (NVIDIA data sheet): bytes/s of HBM3, FLOP/s by input type,
+# NVLink bytes/s to another card each way.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+NVLINK_BYTES_PER_S = 450e9
+# Ring kernel checks: ranks x bucket rows (d 64). 200 and 400 are the MF
+# path's user and item buckets at capacity_factor 2 (400 and 800 at
+# MESH_CAPACITY_FACTOR); 8192 the table-scale user bucket.
+RING_NS = (2, 4, 8)
+RING_CS = (8, 200, 400, 800, 8192)
+# The sharded runs held against the one-device trainer use capacity_factor 4:
+# a ring bucket holds batch positions, and on the structured split the first
+# quarter of the users owns up to 252 of a batch's 400 positions, beyond the
+# 200 that the default factor 2 gives (lookup_overflow counts the positions
+# served as zero rows there, as the JAX package serves them). At 4 no bucket
+# can overflow, so the mesh computes the one-device trainer's function.
+MESH_CAPACITY_FACTOR = 4.0
+# Sharded trainer on a (2, 2) mesh against the one-device trainer, same
+# batches, same well-conditioned weights: the largest relative |d| of any
+# parameter (over max(1, |x|)) or moment (over the table's largest moment)
+# after epochs 1, 2 and 3. The data axis adds two half-batch means and sums
+# a row's duplicates within each data shard first: float32 reassociation that
+# Adam's m / (sqrt(v) + eps) at lr 0.05 amplifies about 8x an epoch (on the
+# CPU: 1.2e-5, 1.5e-4, 9.8e-4 for parameters, 1.0e-5, 1.3e-4, 1.2e-3 for
+# moments). Each epoch's loss to 1e-5 relative.
+MESH_TOL = (1e-4, 1e-3, 1e-2)
+PROFILED_STEPS = 10  # sharded steps under torch.profiler
 
 T0 = time.perf_counter()
 
@@ -901,9 +956,385 @@ def sasrec_head_dims(seed, root_dir):
     return out
 
 
+# -- the ring all-gather and row-sharded MF training (phases 11-14) -------------
+
+
+def ring_bound(n, c, d, dtype, across):
+    """(bound_ms, "bytes") of one all-gather of n (c, d) blocks. Across cards
+    each card reads its block, writes n blocks to its HBM and receives n-1
+    over NVLink, all cards at once; in loopback one card reads n blocks and
+    writes n * n."""
+    block = c * d * torch.empty((), dtype=dtype).element_size()
+    if across:
+        secs = max((1 + n) * block / HBM_BYTES_PER_S, (n - 1) * block / NVLINK_BYTES_PER_S)
+    else:
+        secs = (n + n * n) * block / HBM_BYTES_PER_S
+    return secs * 1e3, "bytes"
+
+
+def sync_all(devices):
+    for device in set(devices):
+        torch.cuda.synchronize(device)
+
+
+def wall_ms(fn, devices, reps=20, warmup=3):
+    """Mean milliseconds of ``fn`` across several cards: host clock around
+    ``reps`` back-to-back calls, every card synchronised before and after."""
+    for _ in range(warmup):
+        fn()
+    sync_all(devices)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all(devices)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def compare_ring(devices, c, d=64, dtype=torch.float32, timed=False, reps=100):
+    """The ring kernel against its plain version, bit for bit: ``reps`` calls
+    back to back on new inputs each (the flags' epochs), every 10th output and
+    the last held against the inputs after one synchronisation. Returns a
+    row; with ``timed`` also the times of the kernel (CUDA events in
+    loopback, host clock around synchronised cards across them), of the
+    kernel alone on the device (profiler), of the plain version and of the
+    library yardstick (``torch.stack`` on each rank in loopback,
+    ``torch.cuda.nccl.all_gather`` across cards)."""
+    n = len(devices)
+    across = len(set(devices)) > 1
+    gen = torch.Generator().manual_seed(n * 100_000 + c)
+    blocks = [torch.randn(c, d, generator=gen).to(dtype).to(dev) for dev in devices]
+    inputs = [[b + k for b in blocks] for k in range(reps)]
+    sync_all(devices)
+    kept = {}
+    for k, xs in enumerate(inputs):
+        outs = ring_allgather(xs)
+        if k % 10 == 0 or k == reps - 1:
+            kept[k] = outs
+    want = ring_allgather_reference(blocks)
+    sync_all(devices)
+    row = {"n": n, "shape": [c, d], "dtype": str(dtype).replace("torch.", ""), "across": across,
+           "calls": reps, "max_abs_err": 0.0}
+    for k, outs in kept.items():
+        for out, x in zip(outs, inputs[k]):
+            full = torch.stack([y.to(out.device) for y in inputs[k]])
+            row["max_abs_err"] = max(row["max_abs_err"], float((out.float() - full.float()).abs().max()))
+            if not torch.equal(out, full):
+                fail(f"ring_allgather call {k} differs from its inputs: {row}")
+    got = kept[0]
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"ring_allgather differs from its plain version: {row}")
+    if timed:
+        outs = [torch.empty((n, c, d), dtype=dtype, device=dev) for dev in devices]
+        if across:
+            row["ms"] = wall_ms(lambda: ring_allgather(blocks), devices)
+            row["plain_ms"] = wall_ms(lambda: ring_allgather_reference(blocks), devices)
+            row["library"] = "torch.cuda.nccl.all_gather"
+            try:
+                row["library_ms"] = wall_ms(lambda: torch.cuda.nccl.all_gather(blocks, outs), devices)
+            except RuntimeError as err:  # a yardstick only: its absence fails nothing
+                log("ring", f"torch.cuda.nccl.all_gather failed, library_ms not measured: {err}")
+                row["library_ms"] = None
+        else:
+            row["ms"] = cuda_ms(lambda: ring_allgather(blocks))
+            row["plain_ms"] = cuda_ms(lambda: ring_allgather_reference(blocks))
+            row["library"] = "torch.stack on each rank"
+            row["library_ms"] = cuda_ms(lambda: [torch.stack(blocks, out=o) for o in outs])
+        row["device_ms"] = kernel_device_ms(lambda: ring_allgather(blocks), "ring_allgather_kernel")
+        row["bound_ms"], row["bound_by"] = ring_bound(n, c, d, dtype, across)
+        device = "not measured" if row["device_ms"] is None else f"{row['device_ms'] * 1e3:.2f} us"
+        library = "not measured" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
+        log("ring", f"n {n} x ({c}, {d}) {row['dtype']} {'across cards' if across else 'loopback'}: call "
+            f"{row['ms'] * 1e3:.2f} us (kernel on the device {device}), plain {row['plain_ms'] * 1e3:.2f} us, "
+            f"{row['library']} {library}, bound {row['bound_ms'] * 1e3:.3f} us by bytes")
+    return row
+
+
+def ring_phase(devices_for, timed_shapes):
+    """Phase 11 (12 across cards): the kernel at n 2/4/8 (what ``devices_for``
+    gives) x C 8/200/400/800/8192 x d 64 float32 and one bfloat16 case, the
+    timed ``(n, c)`` shapes, and the hop latency from the device times of
+    C 8 blocks at the fewest and the most ranks. Returns the rows."""
+    rows = []
+    for n in RING_NS:
+        devices = devices_for(n)
+        if devices is None:
+            continue
+        for c in RING_CS:
+            rows.append(compare_ring(devices, c, timed=(n, c) in timed_shapes))
+    rows.append(compare_ring(devices_for(4), 200, dtype=torch.bfloat16))
+    for row in rows:
+        log("ring", json.dumps(row))
+    tiny = {n: compare_ring(devices_for(n), 8, timed=True, reps=1) for n in RING_NS if devices_for(n) is not None}
+    lo, hi = min(tiny), max(tiny)
+    if tiny[lo]["device_ms"] is not None and tiny[hi]["device_ms"] is not None:
+        hop_us = (tiny[hi]["device_ms"] - tiny[lo]["device_ms"]) * 1e3 / (hi - lo)
+        for row in rows:
+            row["hop_us"] = hop_us
+        log("ring", f"hop latency: ({tiny[hi]['device_ms'] * 1e3:.2f} - {tiny[lo]['device_ms'] * 1e3:.2f} us) / "
+            f"{hi - lo} hops = {hop_us:.2f} us a hop (device times at C 8, n {hi} and {lo})")
+    log("ring", f"{len(rows)} cases x 100 back-to-back calls: every output bit-equal to its inputs and to the "
+        "plain version")
+    return rows
+
+
+def mesh_config(seed, root_dir, mesh_shape, **model):
+    """The slice: configs/mf_default.json with lazy Adam and the ring lookup
+    on a ("data", "model") mesh."""
+    return mf_config(seed, root_dir, sparse_optim=True, lookup_strategy="ring",
+                     capacity_factor=MESH_CAPACITY_FACTOR, **model).replace(
+        system={"mesh": {"data": mesh_shape[0], "model": mesh_shape[1]}})
+
+
+def check_sharded_counts(path, trainer, calls, launches, steps):
+    """Exact ring counts (2 row tables x data rows x steps; one launch a call
+    and card of the ring), and no bucket overflow."""
+    expected = 2 * trainer.n_data * steps
+    check_launches("ring_allgather calls", path, calls, expected)
+    check_launches("ring_allgather", path, launches, expected * len(set(trainer.mesh.devices[0])))
+    dropped, overflow = int(trainer.dropped), int(trainer.lookup_overflow)
+    if dropped or overflow:
+        fail(f"{path}: the bucketed exchange dropped {dropped} gradient rows, the ring lookup overflowed "
+             f"{overflow} batch positions")
+
+
+def mesh_entry_point(seed, root_dir, mesh_shape, devices, epochs=3):
+    """Phase 13 (the slice's main path): MatrixFactorization(cfg, mesh_devices)
+    .train(data) for ``epochs`` epochs, held bit for bit against the one-device
+    lazy-Adam trainer ("xla") through the same entry point, seed and batches:
+    on a (1, n) mesh every lookup copies rows and every sum over the mesh
+    meets zeros only. Then test() and recommend(). Returns the ring launches
+    of train()."""
+    path = f"mf-mesh-{mesh_shape[0]}x{mesh_shape[1]}"
+    data = mf_split()
+    ref = MatrixFactorization(mf_config(seed, root_dir, sparse_optim=True, row_update="xla", max_epoch=epochs))
+    ref_result = ref.train(data)
+    rec = MatrixFactorization(mesh_config(seed, root_dir, mesh_shape, max_epoch=epochs), mesh_devices=devices)
+    ring_allgather.calls = ring_allgather.launches = 0
+    result = rec.train(data)
+    sync_all(devices)
+    calls, launches = ring_allgather.calls, ring_allgather.launches
+    trainer = rec.engine.epoch_fn
+    steps = epochs * trainer.num_batches
+    check_sharded_counts(path, trainer, calls, launches, steps)
+    history = [h["valid"] for h in rec.engine.bookkeeper.history]
+    if history != [h["valid"] for h in ref.engine.bookkeeper.history]:
+        fail(f"{path}: validation metrics differ from the one-device trainer's")
+    for (name, p), q in zip(ref.model.named_parameters(), rec.model.parameters()):
+        if not torch.equal(p, q):
+            fail(f"{path}: best {name} differs from the one-device trainer's by {float((p - q).abs().max())}")
+    for name, (m, v) in trainer.state["moments"].items():
+        want_m, want_v = ref.engine.epoch_fn.state["moments"][name]
+        n_rows = want_m.shape[0]
+        if not (torch.equal(m[:n_rows], want_m) and torch.equal(v[:n_rows], want_v)) or m[n_rows:].any():
+            fail(f"{path}: {name} moments differ from the one-device trainer's")
+    rates = [trainer.padded_size / s for s in rec.engine.epoch_seconds]
+    log(path, f"{epochs} epochs of {trainer.num_batches} steps x {trainer.batch_size} on {devices}: tables, "
+        f"moments and every validation bit-equal to the one-device trainer (best valid ndcg@10 "
+        f"{result['valid_metric']:.6f}); examples/s per epoch " + ", ".join(f"{r:.0f}" for r in rates)
+        + f" (one device: " + ", ".join(f"{ref.engine.epoch_fn.padded_size / s:.0f}" for s in ref.engine.epoch_seconds)
+        + ")")
+    res = rec.test()
+    if not all(np.isfinite(res[key]) for key in EXPECTED_MF_METRICS):
+        fail(f"{path}: test() gave non-finite metrics {res}")
+    recs = rec.recommend(k=10)
+    check_recommendations(recs, data, 10, data.n_users)
+    if int(recs[DEFAULT_ITEM_COL].max()) >= data.n_items:
+        fail(f"{path}: recommend() ranked a pad item")
+    padded = trainer.padded_params()["item_emb"].shape[0]
+    log(path, "test() " + ", ".join(f"{k} {res[k]:.6f}" for k in EXPECTED_MF_METRICS)
+        + f"; recommend(k=10) {data.n_users} users, no train item, no pad item (item table padded "
+        f"{data.n_items} -> {padded} rows)")
+    log(path, f"{PROFILED_STEPS} more steps: " + profile_steps(trainer, rec.engine.generator))
+    return launches
+
+
+def profile_steps(trainer, generator):
+    """``device_breakdown`` of PROFILED_STEPS sharded steps (a whole epoch
+    is ~600,000 device activities, which the profiler takes minutes over)."""
+    users, pos, neg = (x[:PROFILED_STEPS] for x in trainer.form(generator))
+    return device_breakdown(lambda: float(trainer.run_batches(users, pos, neg)), top=8,
+                            kernel="ring_allgather_kernel")
+
+
+def well_conditioned(model, seed):
+    """The MF trainer tests' parameters: embeddings of scale 1, biases 0.5 x
+    N(0, 1), global bias 0.3, so every gradient lies well above its rounding."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            scale = 1.0 if p.dim() == 2 else 0.5
+            p.copy_(scale * torch.randn(p.shape, generator=gen) if p.dim() else torch.tensor(0.3))
+    return model
+
+
+def mesh_run_batches(seed, mesh_shape, devices, epochs=3):
+    """Phase 14: ``epochs`` epochs of the sharded trainer through run_batches
+    on a mesh with a data axis, against the one-device lazy-Adam trainer on
+    the same batches from the same well-conditioned weights, within MESH_TOL
+    (see there). Returns the ring launches."""
+    path = f"mf-mesh-{mesh_shape[0]}x{mesh_shape[1]}"
+    data = mf_split()
+    cfg = mesh_config(seed, "unused", mesh_shape).model
+    models = [well_conditioned(build_model(cfg, data.n_users, data.n_items, device=devices[0]), seed)
+              for _ in range(2)]
+    neg = make_negative_sampler(data, device=devices[0])
+    ref = SparseEpochTrainer(models[0], data.train_arrays(), cfg.batch_size, neg, cfg.lr,
+                             make_optimizer(cfg, [models[0].global_bias]), row_update="xla")
+    trainer = ShardedSparseEpochTrainer(
+        models[1], data.train_arrays(), cfg.batch_size, neg, cfg.lr, make_mesh(*mesh_shape, devices),
+        lambda params: make_optimizer(cfg, params), lookup_strategy="ring",
+        grad_exchange="bucketed" if mesh_shape[1] >= 4 else "allgather", capacity_factor=cfg.capacity_factor)
+    gen = torch.Generator(device=devices[0]).manual_seed(seed)
+    calls = launches = 0
+    worst = []
+    for epoch, limit in zip(range(epochs), MESH_TOL):
+        batches = ref.form(gen)
+        want = float(ref.run_batches(*batches))
+        ring_allgather.calls = ring_allgather.launches = 0
+        got = float(trainer.run_batches(*batches))
+        sync_all(devices)
+        calls, launches = calls + ring_allgather.calls, launches + ring_allgather.launches
+        trainer.assemble()
+        errs = {"loss": abs(got - want) / abs(want)}
+        for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+            errs[name] = float(((p - q).detach().abs() / p.detach().abs().clamp(min=1)).max())
+        for name, pair in ref.state["moments"].items():
+            for i, want_x in enumerate(pair):
+                got_x = trainer.state["moments"][name][i][: want_x.shape[0]]
+                errs[f"{name}.{'mv'[i]}"] = float((got_x - want_x).abs().max() / want_x.abs().max())
+        worst.append(max(errs.values()))
+        if errs["loss"] > 1e-5 or worst[-1] > limit:
+            fail(f"{path} epoch {epoch}: differs from the one-device trainer beyond {limit}: {errs}")
+    check_sharded_counts(path, trainer, calls, launches, epochs * trainer.num_batches)
+    log(path, f"{epochs} epochs through run_batches on {devices}: within {MESH_TOL} of the one-device trainer "
+        f"(largest relative |d| per epoch: " + ", ".join(f"{w:.3g}" for w in worst) + ")")
+    return launches
+
+
+def mesh_table_scale(seed, devices, n_steps=20, n_rows=1_000_000, batch=16_384):
+    """Phase 15: ``n_steps`` steps on a (1, 4) mesh with 1,000,000-row user
+    and item tables (d 64) and batches of 16,384 uniform ids: C 8,192 a shard
+    for the users, at the default capacity_factor 2. Time a step, the ring's
+    share of device time, and the overflow counts. Returns the ring launches."""
+    rng = np.random.default_rng(seed)
+    total = batch * (n_steps + 1)
+    arrays = types.SimpleNamespace(users=rng.integers(0, n_rows, total), items=rng.integers(0, n_rows, total))
+    cfg = mf_config(seed, "unused").model
+    model = build_model(cfg, n_rows, n_rows, device=devices[0]).init_weights(torch.Generator().manual_seed(seed))
+
+    def uniform(gen, users, shape):
+        return torch.randint(0, n_rows, shape, generator=gen, device=users.device)
+
+    trainer = ShardedSparseEpochTrainer(model, arrays, batch, uniform, cfg.lr, make_mesh(1, 4, devices),
+                                        lambda params: make_optimizer(cfg, params), lookup_strategy="ring",
+                                        grad_exchange="bucketed")
+    users, pos, neg = trainer.form(torch.Generator(device=devices[0]).manual_seed(seed))
+    trainer.run_batches(users[:1], pos[:1], neg[:1])  # warm-up
+    sync_all(devices)
+    ring_allgather.calls = ring_allgather.launches = 0
+    t0 = time.perf_counter()
+    loss = float(trainer.run_batches(users[1:], pos[1:], neg[1:]))
+    secs = time.perf_counter() - t0
+    launches = ring_allgather.launches
+    check_sharded_counts("table-scale", trainer, ring_allgather.calls, launches, n_steps)
+    if not np.isfinite(loss):
+        fail(f"table-scale: mean loss {loss}")
+    log("table-scale", f"{n_steps} steps x {batch} on {n_rows} x 64 tables, (1, 4) mesh of {devices}: "
+        f"{secs * 1e3 / n_steps:.2f} ms a step ({n_steps * batch / secs:.1f} examples/s), loss {loss:.4f}, "
+        f"0 dropped, 0 overflowed (ring bucket C {trainer._capacity_for(batch)})")
+    log("table-scale", "two steps: " + device_breakdown(
+        lambda: float(trainer.run_batches(users[1:3], pos[1:3], neg[1:3])), top=8, kernel="ring_allgather_kernel"))
+    return launches
+
+
+def four_card_training(seed, root_dir, devices):
+    """Phase 16 (4 cards): the slice to early stop on a real (1, 4) mesh:
+    inside the JAX package's ten-seed lazy-Adam band, nothing dropped."""
+    data = mf_split()
+    rec = MatrixFactorization(mesh_config(seed, root_dir, (1, 4)), mesh_devices=devices)
+    ring_allgather.calls = ring_allgather.launches = 0
+    result = rec.train(data)
+    sync_all(devices)
+    trainer = rec.engine.epoch_fn
+    steps = len(rec.engine.bookkeeper.history) * trainer.num_batches
+    check_sharded_counts("mf-mesh-4-cards", trainer, ring_allgather.calls, ring_allgather.launches, steps)
+    launches = ring_allgather.launches
+    res = rec.test()
+    rates = [trainer.padded_size / s for s in rec.engine.epoch_seconds]
+    log("mf-mesh-4-cards", f"{len(rates)} epochs, best epoch {result['best_epoch']}, train() "
+        f"{result['run_time']:.2f} s; examples/s after the first epoch: median {np.median(rates[1:]):.1f}; "
+        f"best valid ndcg@10 {result['valid_metric']:.6f}, test ndcg@10 {res['ndcg@10']:.6f}")
+    log("mf-mesh-4-cards", f"{PROFILED_STEPS} more steps: " + profile_steps(trainer, rec.engine.generator))
+    log("mf-mesh-4-cards", in_band("best valid ndcg@10", result["valid_metric"], SPARSE_BAND["valid"]) + "; "
+        + in_band("test ndcg@10", res["ndcg@10"], SPARSE_BAND["test"]))
+    return launches
+
+
+def sharded_phases(seed, root_dir, cards_only=False, ring_only=False):
+    """Phases 11-16; with ``cards_only`` on 4 cards, the one-card training
+    phases (13-15 on cuda:0) are left out; with ``ring_only``, every training
+    phase. Returns (kernel-check rows, ring launches by path)."""
+    n_cards = torch.cuda.device_count()
+    one_card = ["cuda:0"] * 4
+    rows = ring_phase(lambda n: ["cuda:0"] * n, {(4, 200), (4, 800), (4, 8192)})
+    launches = {}
+    if not ring_only and not (cards_only and n_cards >= 4):
+        launches["mf_mesh_1x4"] = mesh_entry_point(seed, root_dir, (1, 4), one_card)
+        launches["mf_mesh_2x2"] = mesh_run_batches(seed, (2, 2), one_card)
+        launches["table_scale"] = mesh_table_scale(seed, one_card)
+    if n_cards >= 4:
+        cards = [f"cuda:{i}" for i in range(4)]
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True, timeout=60)
+        print(topo.stdout or f"nvidia-smi topo -m: exit {topo.returncode} {topo.stderr.strip()}", flush=True)
+        access = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                  for i in range(n_cards) for j in range(n_cards) if i != j}
+        log("4-cards", f"peer access: {access}")
+        rows += ring_phase(lambda n: cards[:n] if n <= 4 else None, {(4, 200), (4, 800), (4, 8192)})
+        if ring_only:
+            return rows, launches
+        launches["mf_mesh_1x4_cards"] = mesh_entry_point(seed, root_dir, (1, 4), cards)
+        launches["mf_mesh_2x2_cards"] = mesh_run_batches(seed, (2, 2), cards)
+        launches["mf_mesh_4_cards_training"] = four_card_training(seed, root_dir, cards)
+    return rows, launches
+
+
+def ring_entry(rows, launches):
+    """The ring's line of the kernels JSON: times at the path's user-table
+    shape in loopback (n 4, C 200 is the bucket of user_emb's 400 ids at
+    capacity_factor 2; 800 that of item_emb at MESH_CAPACITY_FACTOR), and
+    every timed row."""
+    timed = [r for r in rows if "ms" in r and r["calls"] > 1]
+    main_row = next(r for r in timed if not r["across"] and r["n"] == 4 and r["shape"][0] == 200)
+    return {
+        "name": "ring_allgather",
+        "route": "cuda",
+        "source": "beta_recsys_tpu_torch/csrc/ring_allgather.cu",
+        "replaces": "beta_recsys_tpu/ops/pallas/ring_exchange.py:41",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library": main_row["library"],
+        "device_ms": main_row["device_ms"],
+        "hop_us": main_row.get("hop_us"),
+        "shape": [main_row["n"], *main_row["shape"]],
+        "dtype": main_row["dtype"],
+        "timed": [{k: r.get(k) for k in ("n", "shape", "across", "ms", "device_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library", "library_ms", "hop_us")} for r in timed],
+    }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="run only the ring kernel and the sharded MF phases (11-16)")
+    parser.add_argument("--ring-only", action="store_true",
+                        help="run only the ring kernel's checks and times (11-12)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -917,7 +1348,9 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    built = _build.build_all(["flash_attention_fwd", "flash_attention_bwd", "rowadam"])
+    sharded_only = args.sharded_only or args.ring_only
+    built = _build.build_all(["ring_allgather"] if sharded_only
+                             else ["flash_attention_fwd", "flash_attention_bwd", "rowadam", "ring_allgather"])
     wall = time.perf_counter() - t0
     for name, (lib, secs, report) in built.items():
         log("build", f"{name}: {os.path.relpath(lib, REPO)} in {secs:.2f} s")
@@ -926,6 +1359,15 @@ def main():
                 log("build", "  " + line.strip())
     log("build", f"nvcc calls in parallel: {wall:.2f} s of wall time; one after another they "
         f"take {sum(secs for _, secs, _ in built.values()):.2f} s")
+
+    if sharded_only:
+        with tempfile.TemporaryDirectory() as root_dir:
+            ring_rows, ring_launches = sharded_phases(args.seed, root_dir, cards_only=True, ring_only=args.ring_only)
+        if args.ring_only:
+            print(json.dumps({"kernels": [ring_entry(ring_rows, ring_launches)]}), flush=True)
+        else:
+            finish(smi, [ring_entry(ring_rows, ring_launches)])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {}
@@ -989,6 +1431,7 @@ def main():
         train_counts = sasrec_training(args.seed, root_dir)
         train_counts["shipped_shape"] = sasrec_shipped_shape(args.seed, root_dir, ml1m)
         train_counts.update(sasrec_head_dims(args.seed, root_dir))
+        ring_rows, ring_launches = sharded_phases(args.seed, root_dir)
     for path, counts in train_counts.items():
         launches[f"{path}/steps"] = counts["steps"]
         if "eval" in counts:
@@ -1056,14 +1499,19 @@ def main():
         "timed": {key: {k: rowadam_rows[key][k] for k in ("shape", "n_ids", "ids", "touched_rows", "ms", "device_ms",
                                                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
                   for key in ("user_emb", "item_emb", "table_scale")},
-    }]
+    }, ring_entry(ring_rows, ring_launches)]
+    finish(smi, kernels)
+    return 0
+
+
+def finish(smi, kernels):
+    """The last three lines: the kernels, the card, and the result."""
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -70,6 +70,36 @@ def test_sasrec_config_is_the_trained_checkpoints():
     assert (m.lr, m.dropout_rate, m.l2_emb, m.max_n_update, m.max_epoch) == (1e-3, 0.1, 0.0, 20, 200)
 
 
+def test_ring_bound():
+    """Loopback: the card reads n blocks and writes n * n. Across cards: each
+    card receives n - 1 blocks over NVLink (450 GB/s), which bounds it above
+    its own HBM traffic (1 + n blocks)."""
+    block = 200 * 64 * 4
+    ms, by = chip_smoke.ring_bound(4, 200, 64, torch.float32, across=False)
+    assert by == "bytes" and ms == pytest.approx((4 + 16) * block / 3.35e12 * 1e3)
+    ms, by = chip_smoke.ring_bound(4, 200, 64, torch.float32, across=True)
+    assert by == "bytes" and ms == pytest.approx(3 * block / 450e9 * 1e3)
+    ms, _ = chip_smoke.ring_bound(8, 8192, 64, torch.bfloat16, across=False)
+    assert ms == pytest.approx((8 + 64) * 8192 * 64 * 2 / 3.35e12 * 1e3)
+
+
+def test_mesh_config_is_the_slice():
+    cfg = chip_smoke.mesh_config(2, "/nowhere", (2, 2), max_epoch=3)
+    assert cfg.system.mesh == {"data": 2, "model": 2} and cfg.system.seed == 2
+    m = cfg.model
+    assert (m.emb_dim, m.batch_size, m.lr, m.reg, m.max_epoch) == (64, 400, 0.05, 0.001, 3)
+    assert (m.sparse_optim, m.lookup_strategy, m.capacity_factor) == (True, "ring", chip_smoke.MESH_CAPACITY_FACTOR)
+
+
+def test_well_conditioned_weights_repeat():
+    from beta_recsys_tpu_torch.models.mf import MF
+
+    a, b = (chip_smoke.well_conditioned(MF({"emb_dim": 8}, 30, 20, device="cpu"), 4) for _ in range(2))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+    assert float(a.global_bias.detach()) == pytest.approx(0.3) and float(a.user_emb.detach().std()) > 0.5
+
+
 def test_rowadam_bound():
     ms, by = chip_smoke.rowadam_bound(700, 64, 800)
     assert by == "bytes" and ms == pytest.approx((700 * 7 * 64 * 4 + 800 * 8) / 3.35e12 * 1e3)

@@ -25,6 +25,11 @@ chip_smoke.ml1m_shaped_split(0, n_users=30, n_items=60, n_interactions=900, max_
 chip_smoke.rowadam_inputs(100, 40, 4, 0, "cpu", zipf=True)
 chip_smoke.mf_config(0, "unused", sparse_optim=True)
 chip_smoke.sasrec_config(0, "unused", num_heads=1)
+chip_smoke.mesh_config(0, "unused", (1, 4))
+from beta_recsys_tpu_torch.parallel.mesh import make_mesh
+from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather
+make_mesh(1, 4, ["cpu"] * 4)
+ring_allgather([chip_smoke.torch.zeros(8, 4) for _ in range(3)])
 print(len(names))
 """
 
@@ -34,7 +39,7 @@ def test_port_and_chip_smoke_import_without_jax_pandas_or_reference():
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120, cwd=REPO
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 32  # every module was reached
+    assert int(out.stdout.strip().splitlines()[-1]) >= 37  # every module was reached
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

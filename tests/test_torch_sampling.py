@@ -79,7 +79,7 @@ def test_membership_test_equals_numpy_set_test():
 
 @pytest.mark.parametrize("mode", ["bitmask", "csr", "uniform"])
 def test_ids_in_range_and_shape(mode):
-    sampler = train_engine.make_negative_sampler(_Positives(), mode)
+    sampler = train_engine.make_negative_sampler(_Positives(), mode, device="cpu")
     users = torch.arange(N_USERS).repeat(50)
     neg = sampler(torch.Generator().manual_seed(1), users, (len(users),))
     assert neg.shape == users.shape and neg.dtype == torch.int64
@@ -104,9 +104,9 @@ def test_rejection_replays_draw_for_draw():
 def test_bitmask_and_csr_give_the_same_draws(monkeypatch):
     data = _Positives()
     users = torch.arange(N_USERS).repeat(100)
-    auto_small = train_engine.make_negative_sampler(data)
+    auto_small = train_engine.make_negative_sampler(data, device="cpu")
     monkeypatch.setattr(train_engine, "_BITMASK_CELL_LIMIT", 0)  # "auto" now picks the CSR test
-    auto_large = train_engine.make_negative_sampler(data)
+    auto_large = train_engine.make_negative_sampler(data, device="cpu")
     a = auto_small(torch.Generator().manual_seed(3), users, users.shape)
     b = auto_large(torch.Generator().manual_seed(3), users, users.shape)
     assert torch.equal(a, b)

@@ -154,7 +154,7 @@ def test_dense_epoch_matches_jax(split):
     want_params, want_state, _, want_loss = jax_epoch(params, opt.init(params), rng)
 
     optimizer = make_optimizer(cfg, ours.parameters())
-    trainer = make_epoch_fn(ours, optimizer, data.train_arrays(), BATCH, make_negative_sampler(data))
+    trainer = make_epoch_fn(ours, optimizer, data.train_arrays(), BATCH, make_negative_sampler(data, device="cpu"))
     loss = trainer.run_batches(*jax_epoch_batches(rng, jax_data, BATCH))
     _close(loss, want_loss)
     for name, p in ours.named_parameters():
@@ -175,7 +175,7 @@ def test_sparse_epochs_match_jax_and_carry_the_step_count(split, row_update):
     jax_state = (jax_init_sparse_state(params, tables), opt.init({"global_bias": params["global_bias"]}))
 
     dense = [p for name, p in ours.named_parameters() if name not in tables]
-    trainer = SparseEpochTrainer(ours, data.train_arrays(), BATCH, make_negative_sampler(data), LR,
+    trainer = SparseEpochTrainer(ours, data.train_arrays(), BATCH, make_negative_sampler(data, device="cpu"), LR,
                                  make_optimizer(cfg, dense), row_update=row_update)
     rng = jax.random.key(5)
     for epoch in (1, 2):

@@ -242,7 +242,7 @@ def test_sequence_epoch_matches_jax(split):
 
     optimizer = make_optimizer(cfg, ours.parameters())
     trainer = SequenceEpochTrainer(ours, optimizer, data.train_seq_arrays(MAXLEN), batch_size,
-                                   make_negative_sampler(data))
+                                   make_negative_sampler(data, device="cpu"))
     assert trainer.num_batches == batches[0].shape[0] == 3
     _close(trainer.run_batches(*batches), want_loss)
     want = sasrec_params_from_jax(jax.tree_util.tree_map(np.asarray, want_params))
@@ -257,7 +257,7 @@ def test_sequence_negatives_are_non_positive_and_uniform(split):
     collision survives with probability (d/n)^5), uniform over the rest."""
     data, _ = _both_data(split)
     _, _, _, ours = _models(data)
-    trainer = SequenceEpochTrainer(ours, None, data.train_seq_arrays(MAXLEN), 8, make_negative_sampler(data))
+    trainer = SequenceEpochTrainer(ours, None, data.train_seq_arrays(MAXLEN), 8, make_negative_sampler(data, device="cpu"))
     draws_u, draws_i = [], []
     gen = torch.Generator().manual_seed(0)
     for _ in range(40):
