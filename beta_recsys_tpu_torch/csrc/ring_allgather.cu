@@ -1,53 +1,63 @@
-// Ring all-gather over peer-mapped memory, written by hand for Hopper (sm_90a).
+// All-gather of one block per rank, written by hand for Hopper (sm_90a).
 //
 // Replaces beta_recsys_tpu/ops/pallas/ring_exchange.py:_ring_allgather_kernel
 // (reached through ring_allgather), with its contract. Each of n ranks holds
-// one block x_r of B bytes; every rank ends with out_r[s] = x_s for all s. Its
-// order is the TPU kernel's: rank r writes its own block to out_r[r], then
-// n-1 dependent hops follow; at hop i rank r forwards block (r - i) mod n to
-// its right neighbour r+1. Each byte crosses each link of the ring once.
+// one block x_r of B bytes; every rank ends with out_r[s] = x_s for all s,
+// bit for bit (the kernel moves 16-byte vectors, whatever the dtype).
 //
-// Design. The TPU kernel moves each hop through a 2-slot VMEM buffer with a
-// remote DMA and an ACK semaphore for slot reuse. Here a rank stores straight
-// into its right neighbour's output through a peer pointer: every slot of
-// every output is written exactly once, so no buffer and no ACK. What stays:
-//   - the entry barrier (the TPU kernel's barrier semaphore). A peer's store
-//     into out_{r+1} before rank r+1's stream reached this kernel could hit
-//     memory that earlier work on r+1 still uses (the caching allocator orders
-//     reuse only within a device's own stream). So each CTA of rank r first
-//     tells its left neighbour "entered, epoch e", and waits for its right
-//     neighbour's word before its first remote store;
-//   - per-hop flags. Each CTA owns a fixed slice of a block's bytes, moved in
-//     16-byte vectors (so the kernel takes any dtype). At hop i it waits for
-//     its own flag (hop i-1 arrived from the left, epoch e), forwards its
-//     slice, and raises the right neighbour's flag for hop i. Flags are per
-//     CTA: a slice depends only on the same slice one hop back, so no
-//     grid-wide barrier. A rank returns only after its last incoming flag, so
-//     every incoming store is visible to later work on its stream.
-// The flags are words the wrapper allocates once per rank and never resets:
-// each call passes a new epoch (a call counter) and waits for flag >= epoch.
-// Writer: stores, a fence, __syncthreads(), then one release store of the
-// flag. Reader: an acquire load in a spin by one thread, then
-// __syncthreads(). Across cards the fence, the release and the acquire are
-// system-scope; when every rank is on one card, device-scope (kSys false),
-// which keeps a hop's round trip inside the card's L2. A wait that lasts
-// longer than kTimeoutNs traps, so a broken peer ends the process with an
-// error instead of hanging the card.
+// What bounds it on the H100. Bytes. When every rank lives on one card
+// (loopback: the one-card mesh of the trainer), the card reads n blocks and
+// writes n * n (3.35 TB/s): 0.31 us at the MF path's blocks (n 4, C 200 x 64
+// float32, 51.2 KB each). Across cards each card receives n - 1 blocks over
+// NVLink (450 GB/s each way): 0.34 us there. A launch costs more than either.
 //
-// Launch. Across cards: one cooperative launch per device, on that device's
-// stream, all from one C call, so nothing on the host waits between them (a
-// rank spins from its launch until its neighbours' launches enter).
-// All ranks on one card (loopback, as the one-card mesh of the trainer
-// runs it): one launch whose grid covers every rank (blockIdx.y), running the
-// same device function. Cooperative launches guarantee that every CTA a flag
-// waits on is resident.
+// Design. The TPU kernel forwards blocks around the ring, n - 1 dependent
+// hops, because a chip of the ICI torus reaches only its neighbours. The
+// first port kept that order, and paid a flag round trip a hop: 1.5 us a hop
+// in loopback (8.8 us at the path's shape, device time) and ~20 us a hop
+// across 4 cards with launch skew (30.3 us) (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py). An HGX H100 reaches every peer over NVLink directly, and in
+// loopback every block already sits in one card's memory, so:
+//   - Loopback: ring_allgather_copy_kernel, one ordinary launch on the
+//     card's stream. A CTA reads a slice of x_s once and stores it n times,
+//     to out_r[s] for every r. One stream orders every rank's work, so no
+//     rank can race another: no flags, no epoch, no cooperative launch.
+//   - Across cards: ring_allgather_oneshot_kernel, one launch per card (the
+//     ranks on that card in blockIdx.y), all from one C call so nothing on
+//     the host waits between them. A CTA of rank r owns a fixed slice of
+//     block r and stores it straight into out_p[r] of every rank p through
+//     peer pointers, all n - 1 remote stores in flight at once; then it
+//     raises one release flag per peer and waits for the n - 1 flags of the
+//     same slice coming in. Two flag rounds instead of n - 1 hops; each byte
+//     still crosses NVLink once. What stays from the ring:
+//       * the entry barrier. A store into out_p before rank p's stream
+//         reached this kernel could hit memory that earlier work on p still
+//         uses (the caching allocator orders reuse only within a device's own
+//         stream). So each CTA first tells the same CTA of every rank on
+//         another card "entered, epoch e" and waits for their words before
+//         its first remote store: one all-to-all round;
+//       * per-CTA flags that are never reset: each call passes a new epoch
+//         (a call counter) and waits for flag >= epoch. Writer: stores, a
+//         system-scope fence, __syncthreads(), then release stores of the
+//         flags. Reader: acquire loads in a spin (one thread per peer), then
+//         __syncthreads(). A rank returns only after its incoming flags, so
+//         every incoming store is visible to later work on its stream;
+//       * the cooperative launch, which guarantees that every CTA a flag waits
+//         on is resident;
+//       * the timeout: a wait longer than kTimeoutNs traps, so a broken peer
+//         ends the process with an error instead of hanging the card.
+//     Ranks that share a card run in one launch: between them the end of the
+//     kernel orders everything, so they exchange no flags.
+// A pull (each rank reading its peers' blocks) would need the same entry
+// round and the same completion round, so push was kept.
 //
-// What bounds it on the H100. Bytes: across cards each rank receives (n-1)*B
-// bytes over NVLink (450 GB/s each way) and writes n*B to its HBM; in loopback
-// the card reads n blocks and writes n*n (3.35 TB/s). At the MF path's blocks
-// (n 4, C 200 x 64 float32: 51.2 KB) that is under half a microsecond either
-// way, so the n-1 dependent flag hops (a round trip through L2 or NVLink
-// each) and the launch set the pace, not the bytes.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; port_tools/time_kernels.py, the
+// ring design of the first port in the same call; device time of calls
+// queued behind a sleep kernel): loopback n 4 x (200, 64) float32 3.3 us
+// (the ring 10.0), 13.4 us at C 8192 (25.5; the bytes bound 12.5 us); across
+// 4 cards 13.0-20.5 us at C 200 (34.2), 30.5-38.1 at C 8192 (48.7-49.3),
+// where the skew of one launch a card sets the pace. Across cards a call is
+// paced by the host, ~60 us to issue for either design.
 //
 // Interface: plain C functions (no PyTorch headers), built by nvcc into a
 // shared library and called through ctypes. Every entry point sets the
@@ -61,37 +71,50 @@ namespace {
 
 constexpr int kMaxRanks = 16;
 constexpr int kThreads = 256;
+constexpr int kCopyVecs = 4;  // 16-byte vectors a thread of the copy kernel moves
 constexpr unsigned long long kTimeoutNs = 20ull * 1000ull * 1000ull * 1000ull;
 
-struct RingArgs {
-  const uint4* x[kMaxRanks];  // each rank's block: block_vecs 16-byte vectors
-  uint4* out[kMaxRanks];      // each rank's output: n blocks
-  unsigned* flags[kMaxRanks]; // each rank's flags: n rows of flag_stride words
-  int ranks[kMaxRanks];       // the ranks this launch runs, one per blockIdx.y
+// One call, as the wrapper fills it (the layout of _RingCall in
+// ops/kernels/ring_exchange.py). The wrapper writes the pointers, streams,
+// sizes and the epoch before each call; the rest is fixed for a ring.
+struct RingCall {
+  const void* x[kMaxRanks];  // each rank's block: block_vecs 16-byte vectors
+  void* out[kMaxRanks];      // each rank's output: n blocks
+  void* flags[kMaxRanks];    // each rank's flags: 2n rows of flag_stride words
+  void* streams[kMaxRanks];  // per launch: the stream of its device
+  int devs[kMaxRanks];       // per launch: its device
+  int n_local[kMaxRanks];    // per launch: how many ranks it runs
+  int ranks[kMaxRanks];      // the ranks of launch 0, then of launch 1, ...
+  int group[kMaxRanks];      // per rank: the launch that runs it
   int n;
-  int flag_stride;            // row 0: entry; row 1 + i: hop i arrived
+  int n_launch;
+  int n_ctas;       // CTAs a rank (one-shot)
+  int flag_stride;  // words of a flag row: entry rows 0..n-1, arrival rows n..2n-1
   long long block_vecs;
   unsigned epoch;
 };
 
-template <bool kSys>
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+// What one launch of a kernel reads: pointers, not the whole call.
+struct KernelArgs {
+  const uint4* x[kMaxRanks];
+  uint4* out[kMaxRanks];
+  unsigned* flags[kMaxRanks];
+  int group[kMaxRanks];
+  int ranks[kMaxRanks];  // the ranks of this launch, one per blockIdx.y
+  int n;
+  int flag_stride;
+  long long block_vecs;
+  unsigned epoch;
+};
+
+__device__ __forceinline__ unsigned ld_acquire_sys(const unsigned* p) {
   unsigned v;
-  if (kSys) {
-    asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  } else {
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  }
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
-template <bool kSys>
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  if (kSys) {
-    asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-  } else {
-    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-  }
+__device__ __forceinline__ void st_release_sys(unsigned* p, unsigned v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -100,71 +123,74 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// One thread spins until *flag reaches epoch (modulo 2^32), then the CTA syncs.
-template <bool kSys>
-__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned epoch) {
-  if (threadIdx.x == 0) {
-    const unsigned long long start = global_ns();
-    while (static_cast<int>(ld_acquire<kSys>(flag) - epoch) < 0) {
-      if (global_ns() - start > kTimeoutNs) __trap();
+// Spin until *flag reaches epoch (modulo 2^32); traps after kTimeoutNs.
+__device__ __forceinline__ void spin_until(const unsigned* flag, unsigned epoch) {
+  const unsigned long long start = global_ns();
+  while (static_cast<int>(ld_acquire_sys(flag) - epoch) < 0) {
+    if (global_ns() - start > kTimeoutNs) __trap();
+  }
+}
+
+// Loopback: grid (chunks, n); blockIdx.y is the source rank s. Each thread
+// loads kCopyVecs vectors of x_s and stores each to out_r[s], r = 0 .. n-1.
+__global__ void __launch_bounds__(kThreads) ring_allgather_copy_kernel(const KernelArgs a) {
+  const int s = blockIdx.y;
+  const long long bv = a.block_vecs;
+  const uint4* const x = a.x[s];
+  const long long base = static_cast<long long>(blockIdx.x) * kThreads * kCopyVecs + threadIdx.x;
+  uint4 v[kCopyVecs];
+#pragma unroll
+  for (int i = 0; i < kCopyVecs; ++i) {
+    const long long j = base + i * kThreads;
+    if (j < bv) v[i] = x[j];
+  }
+  for (int r = 0; r < a.n; ++r) {
+    uint4* const dst = a.out[r] + s * bv;
+#pragma unroll
+    for (int i = 0; i < kCopyVecs; ++i) {
+      const long long j = base + i * kThreads;
+      if (j < bv) dst[j] = v[i];
     }
   }
-  __syncthreads();
 }
 
-// Every thread's stores become visible to the reader before the flag does.
-template <bool kSys>
-__device__ __forceinline__ void raise_flag(unsigned* flag, unsigned epoch) {
-  if (kSys) {
-    __threadfence_system();
-  } else {
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) st_release<kSys>(flag, epoch);
-}
-
-template <bool kSys>
-__global__ void __launch_bounds__(kThreads) ring_allgather_kernel(const RingArgs a) {
+// Across cards: grid (n_ctas, ranks of this card). CTA c of rank r moves
+// slice c of block r to every rank; threadIdx.x < n speaks for peer
+// threadIdx.x in the flag rounds.
+__global__ void __launch_bounds__(kThreads) ring_allgather_oneshot_kernel(const KernelArgs a) {
   const int r = a.ranks[blockIdx.y];
   const int n = a.n;
-  const int right = (r + 1) % n;
-  const int left = (r + n - 1) % n;
   const int c = blockIdx.x;
-  const long long per = (a.block_vecs + gridDim.x - 1) / gridDim.x;
-  const long long lo = min(static_cast<long long>(c) * per, a.block_vecs);
-  const long long hi = min(lo + per, a.block_vecs);
+  const int stride = a.flag_stride;
   const long long bv = a.block_vecs;
-  unsigned* const mine_flags = a.flags[r];
-  unsigned* const right_flags = a.flags[right];
-  uint4* const mine = a.out[r];
-  uint4* const theirs = a.out[right];
+  const long long per = (bv + gridDim.x - 1) / gridDim.x;
+  const long long lo = min(static_cast<long long>(c) * per, bv);
+  const long long hi = min(lo + per, bv);
+  const int peer = threadIdx.x;
+  const bool remote = peer < n && a.group[peer] != a.group[r];
 
-  // Entry barrier: the left neighbour may now store into out_r; wait until
-  // the right neighbour lets this rank store into out_{r+1}.
-  if (threadIdx.x == 0) st_release<kSys>(a.flags[left] + c, a.epoch);
-  wait_flag<kSys>(mine_flags + c, a.epoch);
+  // Entry round: "rank r entered" to every remote peer, then wait for theirs.
+  if (remote) {
+    st_release_sys(a.flags[peer] + r * stride + c, a.epoch);
+    spin_until(a.flags[r] + peer * stride + c, a.epoch);
+  }
+  __syncthreads();
 
-  // Hop 0: the own block, to out_r[r] and out_{r+1}[r].
   const uint4* const x = a.x[r];
   for (long long j = lo + threadIdx.x; j < hi; j += kThreads) {
     const uint4 v = x[j];
-    mine[r * bv + j] = v;
-    theirs[r * bv + j] = v;
+    for (int p = 0; p < n; ++p) a.out[p][r * bv + j] = v;
   }
-  raise_flag<kSys>(right_flags + a.flag_stride + c, a.epoch);
+  __threadfence_system();
+  __syncthreads();
 
-  // Hops 1 .. n-2: forward block (r - i) mod n, which arrived at hop i-1.
-  for (int i = 1; i < n - 1; ++i) {
-    wait_flag<kSys>(mine_flags + i * a.flag_stride + c, a.epoch);
-    const long long s = (r - i + n) % n;
-    for (long long j = lo + threadIdx.x; j < hi; j += kThreads) {
-      theirs[s * bv + j] = __ldcg(mine + s * bv + j);  // written by a peer: skip L1
-    }
-    raise_flag<kSys>(right_flags + (i + 1) * a.flag_stride + c, a.epoch);
+  // Completion round: slice c of block r is in every remote peer's output;
+  // wait until slice c of every remote block is in this rank's.
+  if (remote) {
+    st_release_sys(a.flags[peer] + (n + r) * stride + c, a.epoch);
+    spin_until(a.flags[r] + (n + peer) * stride + c, a.epoch);
   }
-  // The last hop from the left brings block r + 1.
-  wait_flag<kSys>(mine_flags + (n - 1) * a.flag_stride + c, a.epoch);
+  __syncthreads();
 }
 
 struct DeviceGuard {
@@ -198,69 +224,71 @@ extern "C" int ring_enable_peer(int dev, int peer) {
   return static_cast<int>(err);
 }
 
-// How many CTAs of the kernel can be resident on device `dev` at once (the
-// most a cooperative launch there may hold).
+// How many CTAs of the one-shot kernel can be resident on device `dev` at
+// once (the most a cooperative launch there may hold).
 extern "C" int ring_resident_ctas(int dev, int* out) {
   DeviceGuard guard(dev);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  int per_sm = 0, per_sm_sys = 0, sms = 0, coop = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_allgather_kernel<false>, kThreads, 0);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_sys, ring_allgather_kernel<true>, kThreads, 0);
-  }
+  int per_sm = 0, sms = 0, coop = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_allgather_oneshot_kernel, kThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *out = coop ? (per_sm < per_sm_sys ? per_sm : per_sm_sys) * sms : 0;
+  *out = coop ? per_sm * sms : 0;
   return static_cast<int>(cudaSuccess);
 }
 
-// One call of the ring: a launch on each of the n_launch devices `devs`, on
-// its stream `streams[l]`, for the n_local[l] ranks that live there (their
-// ids one after another in `ranks`), with nothing between the launches that
-// waits on a device. x, out, flags: n pointers each (every rank's, wherever
-// it lives); a rank's flags are n rows of flag_stride zero-initialised 32-bit
-// words. Each grid is (n_ctas, n_local[l]); n_ctas <= flag_stride. block_vecs:
-// 16-byte vectors a block. sys: the ranks span several cards (system-scope
-// flags). Returns the first launch's error; a launch that fails leaves the
-// ones before it to trap at their timeout.
-extern "C" int ring_allgather(int n_launch, const int* devs, void* const* streams, const int* ranks,
-                              const int* n_local, const void* const* x, void* const* out,
-                              void* const* flags, int n, int n_ctas, int flag_stride,
-                              long long block_vecs, unsigned epoch, int sys) {
-  if (n < 2 || n > kMaxRanks || n_launch < 1 || n_launch > n || n_ctas < 1 ||
-      n_ctas > flag_stride || block_vecs < 1) {
+// One all-gather. With one launch (every rank on one card) the copy kernel;
+// otherwise one cooperative launch of the one-shot kernel per card, each on
+// its stream, with nothing between them that waits on a device. Returns the
+// first launch's error; a launch that fails leaves the ones before it to
+// trap at their timeout. call_ptr points to a RingCall (a void pointer, so
+// that the symbol keeps C linkage: RingCall lives in this file only).
+extern "C" int ring_allgather(const void* call_ptr) {
+  const RingCall* const call = static_cast<const RingCall*>(call_ptr);
+  const int n = call->n;
+  if (n < 2 || n > kMaxRanks || call->n_launch < 1 || call->n_launch > n || call->block_vecs < 1 ||
+      (call->n_launch > 1 && (call->n_ctas < 1 || call->n_ctas > call->flag_stride))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  RingArgs a;
+  KernelArgs a;
   for (int r = 0; r < n; ++r) {
-    a.x[r] = static_cast<const uint4*>(x[r]);
-    a.out[r] = static_cast<uint4*>(out[r]);
-    a.flags[r] = static_cast<unsigned*>(flags[r]);
+    a.x[r] = static_cast<const uint4*>(call->x[r]);
+    a.out[r] = static_cast<uint4*>(call->out[r]);
+    a.flags[r] = static_cast<unsigned*>(call->flags[r]);
+    a.group[r] = call->group[r];
   }
   a.n = n;
-  a.flag_stride = flag_stride;
-  a.block_vecs = block_vecs;
-  a.epoch = epoch;
-  const void* kernel = sys ? reinterpret_cast<const void*>(ring_allgather_kernel<true>)
-                           : reinterpret_cast<const void*>(ring_allgather_kernel<false>);
-  void* args[] = {&a};
+  a.flag_stride = call->flag_stride;
+  a.block_vecs = call->block_vecs;
+  a.epoch = call->epoch;
   int prev = -1;
   cudaGetDevice(&prev);
-  cudaError_t err = cudaSuccess;
-  for (int l = 0, first = 0; l < n_launch && err == cudaSuccess; first += n_local[l], ++l) {
-    if (n_local[l] < 1 || first + n_local[l] > n) {
-      err = cudaErrorInvalidValue;
-      break;
-    }
-    for (int i = 0; i < n_local[l]; ++i) a.ranks[i] = ranks[first + i];
-    err = cudaSetDevice(devs[l]);
+  cudaError_t err = cudaSetDevice(call->devs[0]);
+  if (call->n_launch == 1) {
+    const long long per_cta = static_cast<long long>(kThreads) * kCopyVecs;
+    const dim3 grid(static_cast<unsigned>((a.block_vecs + per_cta - 1) / per_cta), n);
     if (err == cudaSuccess) {
-      err = cudaLaunchCooperativeKernel(kernel, dim3(n_ctas, n_local[l]), dim3(kThreads), args, 0,
-                                        static_cast<cudaStream_t>(streams[l]));
+      ring_allgather_copy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(call->streams[0])>>>(a);
+      err = cudaGetLastError();
     }
-    const cudaError_t last = cudaGetLastError();
-    if (err == cudaSuccess) err = last;
+  } else {
+    void* args[] = {&a};
+    for (int l = 0, first = 0; l < call->n_launch && err == cudaSuccess; first += call->n_local[l], ++l) {
+      if (call->n_local[l] < 1 || first + call->n_local[l] > n) {
+        err = cudaErrorInvalidValue;
+        break;
+      }
+      for (int i = 0; i < call->n_local[l]; ++i) a.ranks[i] = call->ranks[first + i];
+      err = cudaSetDevice(call->devs[l]);
+      if (err == cudaSuccess) {
+        err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ring_allgather_oneshot_kernel),
+                                          dim3(call->n_ctas, call->n_local[l]), dim3(kThreads), args, 0,
+                                          static_cast<cudaStream_t>(call->streams[l]));
+      }
+      const cudaError_t last = cudaGetLastError();
+      if (err == cudaSuccess) err = last;
+    }
   }
   if (prev >= 0) cudaSetDevice(prev);
   return static_cast<int>(err);

@@ -11,11 +11,14 @@ gradient is the reduce-scatter: rank r's block gets the sum over ranks of
 their cotangent's block r, added in rank order (the JAX package's ``psum`` and
 slice; torch ops, not a kernel).
 
-The kernel is ``csrc/ring_allgather.cu``; its source note says how it is
-designed and what bounds it. Ranks on other cards are reached through peer
-pointers, enabled once per ring; ranks that share a card (a mesh that repeats
-a device) run in one launch. CPU blocks go through the plain version; CUDA
-blocks go through the kernel or raise.
+The kernels are in ``csrc/ring_allgather.cu``; its source note says how
+they are designed and what bounds them. When every rank lives on one card
+(a mesh that repeats one device), one launch of a copy kernel fills one
+(n, n, C, d) tensor whose n views are returned. Across cards, one launch per
+card of a one-shot kernel stores each block into every peer's output
+through peer pointers, enabled once per set of devices for every pair;
+ranks that share a card run in one launch. CPU blocks go through the plain
+version; CUDA blocks go through a kernel or raise.
 """
 
 import ctypes
@@ -45,9 +48,10 @@ def ring_allgather_reference(blocks):
 def ring_allgather(blocks):
     """All-gather one (C, d) block per rank around the ring of their devices.
     Returns n tensors of shape (n, C, d), rank r's on rank r's device, block s
-    of each equal to ``blocks[s]``. Differentiable. Counts the calls that reach
-    the kernel in ``ring_allgather.calls`` and its launches (one per distinct
-    device of a call) in ``ring_allgather.launches``."""
+    of each equal to ``blocks[s]`` (on one card, views of one (n, n, C, d)
+    tensor). Differentiable. Counts the calls that reach the kernels in
+    ``ring_allgather.calls`` and their launches (one per distinct device of
+    a call) in ``ring_allgather.launches``."""
     blocks = list(blocks)
     if len(blocks) == 1:
         return [blocks[0][None]]
@@ -61,12 +65,13 @@ ring_allgather.launches = 0
 
 
 def _forward(blocks):
-    kinds = {b.device.type for b in blocks}
+    devices = tuple(b.device for b in blocks)
+    kinds = {d.type for d in devices}
     if kinds == {"cpu"}:
         return ring_allgather_reference(blocks)
     if kinds != {"cuda"}:
         raise ValueError(f"ring_allgather runs on cuda or cpu blocks, all on one kind, not {sorted(kinds)}")
-    return _launch(blocks)
+    return _launch(blocks, devices)
 
 
 class _RingAllGather(torch.autograd.Function):
@@ -106,11 +111,35 @@ def _check(blocks):
             raise ValueError(f"block {r} must be contiguous and 16-byte aligned")
 
 
+class _RingCall(ctypes.Structure):
+    """The C side's ``RingCall`` (``csrc/ring_allgather.cu``), field for field."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p * MAX_RANKS),
+        ("out", ctypes.c_void_p * MAX_RANKS),
+        ("flags", ctypes.c_void_p * MAX_RANKS),
+        ("streams", ctypes.c_void_p * MAX_RANKS),
+        ("devs", ctypes.c_int * MAX_RANKS),
+        ("n_local", ctypes.c_int * MAX_RANKS),
+        ("ranks", ctypes.c_int * MAX_RANKS),
+        ("group", ctypes.c_int * MAX_RANKS),
+        ("n", ctypes.c_int),
+        ("n_launch", ctypes.c_int),
+        ("n_ctas", ctypes.c_int),
+        ("flag_stride", ctypes.c_int),
+        ("block_vecs", ctypes.c_longlong),
+        ("epoch", ctypes.c_uint),
+    ]
+
+
 class _Ring:
-    """One ring of devices (rank r on ``devices[r]``): each rank's flag words,
-    allocated and zeroed once, and the call counter that gives each call its
-    epoch. Peer access is enabled for every neighbour pair on two devices;
-    flags are system-scope only when the ring spans several cards."""
+    """One set of devices (rank r on ``devices[r]``) and everything of its
+    calls that does not change between them: the launches (one per distinct
+    device), the C call's argument struct, and, when the ranks span several
+    cards, each rank's flag words (allocated and zeroed once), peer access
+    for every ordered pair of the cards, and the call counter that gives
+    each call its epoch. A call only writes its pointers, streams and sizes
+    into the struct."""
 
     def __init__(self, devices):
         lib = _library()
@@ -118,68 +147,86 @@ class _Ring:
         self.local = {}
         for r, device in enumerate(devices):
             self.local.setdefault(device, []).append(r)
-        for r, device in enumerate(devices):
-            for peer in (devices[(r + 1) % n], devices[(r - 1) % n]):
-                if peer != device:
-                    err = lib.ring_enable_peer(device.index, peer.index)
-                    if err:
-                        raise RuntimeError(
-                            f"ring_allgather: no peer access from cuda:{device.index} to cuda:{peer.index} "
-                            f"(CUDA error {err}); the kernel stores through peer pointers and has no host-staged path"
-                        )
+        self.loopback = len(self.local) == 1
+        call = self.call = _RingCall()
+        call.n, call.n_launch, call.flag_stride = n, len(self.local), FLAG_STRIDE
+        order = [r for ranks in self.local.values() for r in ranks]
+        for l, (device, ranks) in enumerate(self.local.items()):
+            call.devs[l], call.n_local[l] = device.index, len(ranks)
+            for r in ranks:
+                call.group[r] = l
+        for i, r in enumerate(order):
+            call.ranks[i] = r
         self.max_ctas = FLAG_STRIDE
-        for device, ranks in self.local.items():
-            resident = ctypes.c_int(0)
-            err = lib.ring_resident_ctas(device.index, ctypes.byref(resident))
-            if err:
-                raise RuntimeError(f"ring_allgather: occupancy query on cuda:{device.index} failed: CUDA error {err}")
-            self.max_ctas = min(self.max_ctas, resident.value // len(ranks))
-        if self.max_ctas < 1:
-            raise RuntimeError(f"ring_allgather: {devices} cannot hold a cooperative launch of every rank")
-        self.flags = [torch.zeros((n, FLAG_STRIDE), dtype=torch.int32, device=d) for d in devices]
-        for device in self.local:
-            torch.cuda.synchronize(device)  # zeroed before any peer writes a flag
-        self.flag_ptrs = (ctypes.c_void_p * n)(*(f.data_ptr() for f in self.flags))
-        self.n_launch = len(self.local)
-        self.launch_devices = (ctypes.c_int * self.n_launch)(*(d.index for d in self.local))
-        self.launch_ranks = (ctypes.c_int * n)(*(r for ranks in self.local.values() for r in ranks))
-        self.launch_sizes = (ctypes.c_int * self.n_launch)(*(len(ranks) for ranks in self.local.values()))
-        self.sys = int(self.n_launch > 1)
+        if not self.loopback:
+            cards = list(self.local)
+            for device in cards:
+                for peer in cards:
+                    if peer != device:
+                        err = lib.ring_enable_peer(device.index, peer.index)
+                        if err:
+                            raise RuntimeError(
+                                f"ring_allgather: no peer access from cuda:{device.index} to cuda:{peer.index} "
+                                f"(CUDA error {err}); the kernel stores through peer pointers and has no "
+                                "host-staged path"
+                            )
+            for device, ranks in self.local.items():
+                resident = ctypes.c_int(0)
+                err = lib.ring_resident_ctas(device.index, ctypes.byref(resident))
+                if err:
+                    raise RuntimeError(f"ring_allgather: occupancy query on cuda:{device.index} failed: CUDA error {err}")
+                self.max_ctas = min(self.max_ctas, resident.value // len(ranks))
+            if self.max_ctas < 1:
+                raise RuntimeError(f"ring_allgather: {devices} cannot hold a cooperative launch of every rank")
+            self.flags = [torch.zeros((2 * n, FLAG_STRIDE), dtype=torch.int32, device=d) for d in devices]
+            for device in cards:
+                torch.cuda.synchronize(device)  # zeroed before any peer writes a flag
+            for r, f in enumerate(self.flags):
+                call.flags[r] = f.data_ptr()
+        self.call_ptr = ctypes.addressof(call)
         self.epoch = 0
 
 
 _RINGS = {}
 
 
-def _launch(blocks):
+def _launch(blocks, devices):
     _check(blocks)
     n = len(blocks)
-    devices = tuple(b.device for b in blocks)
     ring = _RINGS.get(devices)
     if ring is None:
         ring = _RINGS[devices] = _Ring(devices)
-    outs = [torch.empty((n, *b.shape), dtype=b.dtype, device=b.device) for b in blocks]
-    block_bytes = blocks[0].numel() * blocks[0].element_size()
+    first = blocks[0]
+    if ring.loopback:  # one tensor holds every rank's output
+        outs = torch.empty((n, n, *first.shape), dtype=first.dtype, device=first.device).unbind(0)
+    else:
+        outs = [None] * n
+        for device, ranks in ring.local.items():
+            for r, o in zip(ranks, torch.empty((len(ranks), n, *first.shape), dtype=first.dtype,
+                                               device=device).unbind(0)):
+                outs[r] = o
+    block_bytes = first.numel() * first.element_size()
     if block_bytes == 0:
-        return outs
-    n_ctas = min(ring.max_ctas, -(-block_bytes // CTA_BYTES))
-    ring.epoch += 1
-    epoch = ring.epoch & 0xFFFFFFFF
-    ptrs = ctypes.c_void_p * n
-    x = ptrs(*(b.data_ptr() for b in blocks))
-    out = ptrs(*(o.data_ptr() for o in outs))
-    streams = (ctypes.c_void_p * ring.n_launch)(*(torch.cuda.current_stream(d).cuda_stream for d in ring.local))
-    # One launch per device from one C call: a rank spins until its
-    # neighbours have entered, so nothing may wait on the host in between.
-    with torch.cuda.device(devices[0]):
-        err = _library().ring_allgather(ring.n_launch, ring.launch_devices, streams, ring.launch_ranks,
-                                        ring.launch_sizes, x, out, ring.flag_ptrs, n, n_ctas, FLAG_STRIDE,
-                                        block_bytes // 16, epoch, ring.sys)
+        return list(outs)
+    call = ring.call
+    for r in range(n):
+        call.x[r] = blocks[r].data_ptr()
+        call.out[r] = outs[r].data_ptr()
+    # The current stream of every device, read on each call, so that a
+    # caller's stream is honoured.
+    for l, device in enumerate(ring.local):
+        call.streams[l] = torch.cuda.current_stream(device).cuda_stream
+    call.block_vecs = block_bytes // 16
+    if not ring.loopback:
+        call.n_ctas = min(ring.max_ctas, -(-block_bytes // CTA_BYTES))
+        ring.epoch += 1
+        call.epoch = ring.epoch & 0xFFFFFFFF
+    err = _library().ring_allgather(ring.call_ptr)
     if err:
         raise RuntimeError(f"ring_allgather launch on {list(ring.local)} failed: CUDA error {err}")
-    ring_allgather.launches += ring.n_launch
+    ring_allgather.launches += call.n_launch
     ring_allgather.calls += 1
-    return outs
+    return list(outs)
 
 
 @functools.cache
@@ -191,10 +238,6 @@ def _library():
     lib.ring_enable_peer.restype = ctypes.c_int
     lib.ring_resident_ctas.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ring_resident_ctas.restype = ctypes.c_int
-    int_p, ptr_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    lib.ring_allgather.argtypes = (
-        [ctypes.c_int, int_p, ptr_p, int_p, int_p, ptr_p, ptr_p, ptr_p] + [ctypes.c_int] * 3
-        + [ctypes.c_longlong, ctypes.c_uint, ctypes.c_int]
-    )
+    lib.ring_allgather.argtypes = [ctypes.c_void_p]
     lib.ring_allgather.restype = ctypes.c_int
     return lib

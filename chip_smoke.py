@@ -10,9 +10,10 @@ Phases, each printed with the seconds elapsed:
   2. each kernel against its plain PyTorch version on the card, at the shapes
      its paths give it (fused_rowadam also at a table-scale shape; the flash
      forward and backward at head dims 16, 32 and 64, dropout rates 0 and
-     0.1, float32 and bfloat16, their dropout masks bit for bit), with times
-     (kernel, plain, one library call as a yardstick) and the least time the
-     card could take;
+     0.1, float32 and bfloat16, T up to 200 with the backward's 64-row tile
+     edges, their dropout masks bit for bit), with times (kernel, plain, one
+     library call as a yardstick; the backward also queued behind a sleep
+     kernel, its time on the device) and the least time the card could take;
   3. train MF + BPR (configs/mf_default.json, lazy Adam, row_update "fused")
      on the structured synthetic split through MatrixFactorization(cfg)
      .train(data): 2 fused_rowadam launches a step, best valid and test
@@ -33,9 +34,10 @@ Phases, each printed with the seconds elapsed:
   9. 20 training steps at configs/sasrec_default.json's shapes (maxlen 200,
      lr 0.5) over the MovieLens-1M-shaped data: finite loss, exact launches;
  10. short trainings at head dims 16 (emb 32, 2 heads) and 64 (1 head);
- 11. the ring all-gather kernel against its plain version, bit for bit, with
-     every rank on cuda:0 (loopback): n 2/4/8 x C 8/200/400/800/8192 x d 64,
-     100 calls back to back each, with times and the hop latency;
+ 11. the ring all-gather against its plain version, bit for bit, with every
+     rank on cuda:0 (loopback: the copy kernel): n 2/3/4/8 x C 8/200/400/
+     800/8192 x d 64, 100 calls back to back each, with times and the device
+     time each rank adds;
  12. on 4 cards or more (with --chips 4): `nvidia-smi topo -m`, peer access,
      and phase 11 across cuda:0-3 against torch.cuda.nccl.all_gather;
  13. the slice's main path: MatrixFactorization(cfg, mesh_devices=["cuda:0"]
@@ -168,6 +170,14 @@ TOL = {torch.float32: {"out": 1e-4, "lse": 1e-5}, torch.bfloat16: {"out": 2e-2, 
 # and round each gradient once to bfloat16, one bfloat16 step (2^-8
 # relative) apart at most.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Phase 9's mean loss over 20 steps at the shipped config through the
+# kernels against the plain attention, the same seed and masks. Adam at lr
+# 0.5 moves every weight by ~0.5 a step whatever its gradient's size, so
+# float32 roundings part the two runs: over these steps the kernels' plain
+# versions (recomputing P from lse) come 0.8% above plain autograd in mean
+# loss, the kernels 1.2% (port_tools/shipped_steps.py on an H100). Backward
+# forms that left a rounding of lse in P's exponent came 25% and 73% above.
+SHIPPED_LOSS_TOL = 0.05
 DROPOUT_RATE = 0.1  # SASRec's training dropout in every shipped config
 NEAR_TIE = 1e-5  # top-10 lists may differ only where plain scores are this close
 USER_BLOCK = 4096  # users per scoring call in the default config's recommend()
@@ -176,10 +186,10 @@ USER_BLOCK = 4096  # users per scoring call in the default config's recommend()
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 NVLINK_BYTES_PER_S = 450e9
-# Ring kernel checks: ranks x bucket rows (d 64). 200 and 400 are the MF
+# All-gather kernel checks: ranks x bucket rows (d 64). 200 and 400 are the MF
 # path's user and item buckets at capacity_factor 2 (400 and 800 at
 # MESH_CAPACITY_FACTOR); 8192 the table-scale user bucket.
-RING_NS = (2, 4, 8)
+RING_NS = (2, 3, 4, 8)
 RING_CS = (8, 200, 400, 800, 8192)
 # The sharded runs held against the one-device trainer use capacity_factor 4:
 # a ring bucket holds batch positions, and on the structured split the first
@@ -253,6 +263,40 @@ def kernel_device_ms(fn, kernel, reps=20):
     if not count:
         return None  # the profiler saw no device activity: not measured
     return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def queued_ms(fn, devices=("cuda",), reps=20, sleep_cycles=40_000_000):
+    """Mean device milliseconds a call of ``fn``, whatever the host takes:
+    ``reps`` calls queued behind a sleep kernel on every card of
+    ``devices`` (~20 ms at the H100's clocks, longer than the host takes to
+    queue them), timed by CUDA events on the first card's stream. Calls
+    that span several cards include their waits for each other. Fails if
+    the host did not finish queueing before the sleep ended."""
+    cards = list(dict.fromkeys(torch.device(d) for d in devices))
+
+    def sleep(cycles):
+        for device in cards:
+            with torch.cuda.device(device):
+                torch.cuda._sleep(cycles)
+
+    fn()
+    sleep(1)  # the sleep kernel's first launch on a card loads it: not inside the timing
+    sync_all(devices)
+    first = cards[0]
+    sleep_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    sleep_start.record(torch.cuda.current_stream(first))
+    sleep(sleep_cycles)
+    start.record(torch.cuda.current_stream(first))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record(torch.cuda.current_stream(first))
+    end.synchronize()
+    sync_all(devices)
+    if host_ms > sleep_start.elapsed_time(start):
+        fail(f"queueing {reps} calls took {host_ms:.2f} ms, longer than the sleep meant to cover it")
+    return start.elapsed_time(end) / reps
 
 
 def device_breakdown(fn, top=5, kernel=None):
@@ -427,6 +471,7 @@ def time_flash_train(n, t, dh, dtype, rate, gen):
     row["fwd_ms"] = cuda_ms(lambda: flash_causal_attention(q, k, v, rate, seed))
     row["fwd_plain_ms"] = cuda_ms(lambda: flash_causal_attention_reference(q, k, v, rate, seed))
     row["bwd_ms"] = cuda_ms(lambda: flash_causal_attention_bwd(q, k, v, lse, do, rate, seed))
+    row["bwd_device_ms"] = queued_ms(lambda: flash_causal_attention_bwd(q, k, v, lse, do, rate, seed))
     row["bwd_plain_ms"] = cuda_ms(lambda: flash_causal_attention_bwd_reference(q, k, v, lse, do, rate, seed))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row["fwd_library_ms"] = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
@@ -437,10 +482,11 @@ def time_flash_train(n, t, dh, dtype, rate, gen):
     row["bwd_bound_ms"], row["bwd_bound_by"] = attention_bwd_bound(n, t, dh, dtype)
     log("flash", f"{n}x{t}x{dh} {row['dtype']} rate {rate}: forward kernel {row['fwd_ms'] * 1e3:.1f} us, plain "
         f"{row['fwd_plain_ms'] * 1e3:.1f} us, SDPA {row['fwd_library_ms'] * 1e3:.1f} us, bound "
-        f"{row['fwd_bound_ms'] * 1e3:.1f} us by {row['fwd_bound_by']}; backward kernel {row['bwd_ms'] * 1e3:.1f} us, "
+        f"{row['fwd_bound_ms'] * 1e3:.1f} us by {row['fwd_bound_by']}; backward kernel {row['bwd_ms'] * 1e3:.1f} us "
+        f"(queued on the device {row['bwd_device_ms'] * 1e3:.1f} us), "
         f"plain {row['bwd_plain_ms'] * 1e3:.1f} us, SDPA {row['bwd_library_ms'] * 1e3:.1f} us, bound "
         f"{row['bwd_bound_ms'] * 1e3:.1f} us by {row['bwd_bound_by']} "
-        f"({100 * row['bwd_bound_ms'] / row['bwd_ms']:.1f}% of bound)")
+        f"({100 * row['bwd_bound_ms'] / row['bwd_device_ms']:.1f}% of bound)")
     return row
 
 
@@ -911,23 +957,32 @@ def sasrec_training(seed, root_dir):
 def sasrec_shipped_shape(seed, root_dir, data, n_steps=20):
     """Phase 9: ``n_steps`` training steps at configs/sasrec_default.json's
     shapes (maxlen 200, emb 64, 2 heads, batch 128, lr 0.5 as shipped) over
-    the MovieLens-1M-shaped data, after one warm-up step. Returns the flash
-    launches of the counted steps."""
-    cfg = load_config(DEFAULT_CONFIG).replace(system={"root_dir": root_dir, "seed": seed})
+    the MovieLens-1M-shaped data, after one warm-up step, through the flash
+    kernels and again through the plain attention (``fused_attention``
+    false: the same dropout masks, autograd through the softmax). The two
+    mean losses must agree within ``SHIPPED_LOSS_TOL``. Returns the flash
+    launches of the kernel path's counted steps."""
     device = torch.device("cuda")
-    model = build_model(cfg.model, data.n_users, data.n_items, device=device)
-    engine = TrainEngine(cfg, device).build(model, data)
-    trainer = engine.epoch_fn
-    rows, users, neg0 = trainer.form(engine.generator)
-    if trainer.num_batches < n_steps + 1:
-        fail(f"the shipped shape has {trainer.num_batches} batches an epoch, fewer than {n_steps + 1}")
-    trainer.run_batches(rows[:1], users[:1], neg0[:1], generator=engine.generator)
-    torch.cuda.synchronize()
+
+    def start(fused):
+        cfg = load_config(DEFAULT_CONFIG).replace(system={"root_dir": root_dir, "seed": seed},
+                                                  model={"fused_attention": fused})
+        model = build_model(cfg.model, data.n_users, data.n_items, device=device)
+        engine = TrainEngine(cfg, device).build(model, data)
+        trainer = engine.epoch_fn
+        batches = trainer.form(engine.generator)
+        if trainer.num_batches < n_steps + 1:
+            fail(f"the shipped shape has {trainer.num_batches} batches an epoch, fewer than {n_steps + 1}")
+        trainer.run_batches(*(b[:1] for b in batches), generator=engine.generator)
+        torch.cuda.synchronize()
+        return cfg, model, trainer, lambda: float(trainer.run_batches(*(b[1:n_steps + 1] for b in batches),
+                                                                      generator=engine.generator))
+
+    cfg, model, trainer, steps = start(True)
     torch.cuda.reset_peak_memory_stats()
     flash_causal_attention.launches = flash_causal_attention_bwd.launches = 0
     t0 = time.perf_counter()
-    loss = float(trainer.run_batches(rows[1:n_steps + 1], users[1:n_steps + 1], neg0[1:n_steps + 1],
-                                     generator=engine.generator))
+    loss = steps()
     secs = time.perf_counter() - t0
     counts = {"steps": flash_causal_attention.launches, "bwd": flash_causal_attention_bwd.launches}
     check_launches("flash forward in training steps", "shipped", counts["steps"], model.num_blocks * n_steps)
@@ -935,9 +990,14 @@ def sasrec_shipped_shape(seed, root_dir, data, n_steps=20):
     if not np.isfinite(loss):
         fail(f"the shipped shape's mean loss over {n_steps} steps is {loss}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    plain_loss = start(False)[3]()
     log("shipped", f"{n_steps} steps x {trainer.batch_size} sequences (maxlen {model.maxlen}, {data.n_items} items, "
-        f"lr {cfg.model.lr}): mean loss {loss:.4f}, {n_steps * trainer.batch_size / secs:.1f} sequences/s "
-        f"({secs * 1e3 / n_steps:.2f} ms a step), peak memory {peak_gib:.3f} GiB")
+        f"lr {cfg.model.lr}): mean loss {loss:.4f} (plain attention {plain_loss:.4f}), "
+        f"{n_steps * trainer.batch_size / secs:.1f} sequences/s ({secs * 1e3 / n_steps:.2f} ms a step), "
+        f"peak memory {peak_gib:.3f} GiB")
+    if not abs(loss / plain_loss - 1) <= SHIPPED_LOSS_TOL:
+        fail(f"the shipped shape's mean loss {loss:.4f} through the kernels is more than {SHIPPED_LOSS_TOL:.0%} "
+             f"from the plain attention's {plain_loss:.4f}")
     return counts
 
 
@@ -991,12 +1051,13 @@ def wall_ms(fn, devices, reps=20, warmup=3):
 
 
 def compare_ring(devices, c, d=64, dtype=torch.float32, timed=False, reps=100):
-    """The ring kernel against its plain version, bit for bit: ``reps`` calls
-    back to back on new inputs each (the flags' epochs), every 10th output and
-    the last held against the inputs after one synchronisation. Returns a
-    row; with ``timed`` also the times of the kernel (CUDA events in
-    loopback, host clock around synchronised cards across them), of the
-    kernel alone on the device (profiler), of the plain version and of the
+    """The all-gather kernel (the copy kernel in loopback, the one-shot
+    kernel across cards) against its plain version, bit for bit: ``reps``
+    calls back to back on new inputs each (the flags' epochs across cards),
+    every 10th output and the last held against the inputs after one
+    synchronisation. Returns a row; with ``timed`` also the times of a call
+    (CUDA events in loopback, host clock around synchronised cards across
+    them), of the kernel on the device (``queued_ms``), of the plain version and of the
     library yardstick (``torch.stack`` on each rank in loopback,
     ``torch.cuda.nccl.all_gather`` across cards)."""
     n = len(devices)
@@ -1013,7 +1074,7 @@ def compare_ring(devices, c, d=64, dtype=torch.float32, timed=False, reps=100):
     want = ring_allgather_reference(blocks)
     sync_all(devices)
     row = {"n": n, "shape": [c, d], "dtype": str(dtype).replace("torch.", ""), "across": across,
-           "calls": reps, "max_abs_err": 0.0}
+           "design": "one-shot" if across else "loopback copy", "calls": reps, "max_abs_err": 0.0}
     for k, outs in kept.items():
         for out, x in zip(outs, inputs[k]):
             full = torch.stack([y.to(out.device) for y in inputs[k]])
@@ -1039,21 +1100,21 @@ def compare_ring(devices, c, d=64, dtype=torch.float32, timed=False, reps=100):
             row["plain_ms"] = cuda_ms(lambda: ring_allgather_reference(blocks))
             row["library"] = "torch.stack on each rank"
             row["library_ms"] = cuda_ms(lambda: [torch.stack(blocks, out=o) for o in outs])
-        row["device_ms"] = kernel_device_ms(lambda: ring_allgather(blocks), "ring_allgather_kernel")
+        row["device_ms"] = queued_ms(lambda: ring_allgather(blocks), devices)
         row["bound_ms"], row["bound_by"] = ring_bound(n, c, d, dtype, across)
-        device = "not measured" if row["device_ms"] is None else f"{row['device_ms'] * 1e3:.2f} us"
         library = "not measured" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
-        log("ring", f"n {n} x ({c}, {d}) {row['dtype']} {'across cards' if across else 'loopback'}: call "
-            f"{row['ms'] * 1e3:.2f} us (kernel on the device {device}), plain {row['plain_ms'] * 1e3:.2f} us, "
+        log("ring", f"n {n} x ({c}, {d}) {row['dtype']} {row['design']}: call {row['ms'] * 1e3:.2f} us, on the "
+            f"device {row['device_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
             f"{row['library']} {library}, bound {row['bound_ms'] * 1e3:.3f} us by bytes")
     return row
 
 
 def ring_phase(devices_for, timed_shapes):
-    """Phase 11 (12 across cards): the kernel at n 2/4/8 (what ``devices_for``
-    gives) x C 8/200/400/800/8192 x d 64 float32 and one bfloat16 case, the
-    timed ``(n, c)`` shapes, and the hop latency from the device times of
-    C 8 blocks at the fewest and the most ranks. Returns the rows."""
+    """Phase 11 (12 across cards): the kernel at n 2/3/4/8 (what
+    ``devices_for`` gives) x C 8/200/400/800/8192 x d 64 float32 and one
+    bfloat16 case, the timed ``(n, c)`` shapes, and the device time each
+    rank adds, from the device times of C 8 blocks at the fewest and the
+    most ranks. Returns the rows."""
     rows = []
     for n in RING_NS:
         devices = devices_for(n)
@@ -1066,12 +1127,11 @@ def ring_phase(devices_for, timed_shapes):
         log("ring", json.dumps(row))
     tiny = {n: compare_ring(devices_for(n), 8, timed=True, reps=1) for n in RING_NS if devices_for(n) is not None}
     lo, hi = min(tiny), max(tiny)
-    if tiny[lo]["device_ms"] is not None and tiny[hi]["device_ms"] is not None:
-        hop_us = (tiny[hi]["device_ms"] - tiny[lo]["device_ms"]) * 1e3 / (hi - lo)
-        for row in rows:
-            row["hop_us"] = hop_us
-        log("ring", f"hop latency: ({tiny[hi]['device_ms'] * 1e3:.2f} - {tiny[lo]['device_ms'] * 1e3:.2f} us) / "
-            f"{hi - lo} hops = {hop_us:.2f} us a hop (device times at C 8, n {hi} and {lo})")
+    rank_us = (tiny[hi]["device_ms"] - tiny[lo]["device_ms"]) * 1e3 / (hi - lo)
+    for row in rows:
+        row["rank_us"] = rank_us
+    log("ring", f"device time a rank adds: ({tiny[hi]['device_ms'] * 1e3:.2f} - {tiny[lo]['device_ms'] * 1e3:.2f} us)"
+        f" / {hi - lo} ranks = {rank_us:.2f} us (C 8, n {hi} and {lo})")
     log("ring", f"{len(rows)} cases x 100 back-to-back calls: every output bit-equal to its inputs and to the "
         "plain version")
     return rows
@@ -1153,7 +1213,7 @@ def profile_steps(trainer, generator):
     is ~600,000 device activities, which the profiler takes minutes over)."""
     users, pos, neg = (x[:PROFILED_STEPS] for x in trainer.form(generator))
     return device_breakdown(lambda: float(trainer.run_batches(users, pos, neg)), top=8,
-                            kernel="ring_allgather_kernel")
+                            kernel="ring_allgather")
 
 
 def well_conditioned(model, seed):
@@ -1243,7 +1303,7 @@ def mesh_table_scale(seed, devices, n_steps=20, n_rows=1_000_000, batch=16_384):
         f"{secs * 1e3 / n_steps:.2f} ms a step ({n_steps * batch / secs:.1f} examples/s), loss {loss:.4f}, "
         f"0 dropped, 0 overflowed (ring bucket C {trainer._capacity_for(batch)})")
     log("table-scale", "two steps: " + device_breakdown(
-        lambda: float(trainer.run_batches(users[1:3], pos[1:3], neg[1:3])), top=8, kernel="ring_allgather_kernel"))
+        lambda: float(trainer.run_batches(users[1:3], pos[1:3], neg[1:3])), top=8, kernel="ring_allgather"))
     return launches
 
 
@@ -1299,10 +1359,10 @@ def sharded_phases(seed, root_dir, cards_only=False, ring_only=False):
 
 
 def ring_entry(rows, launches):
-    """The ring's line of the kernels JSON: times at the path's user-table
-    shape in loopback (n 4, C 200 is the bucket of user_emb's 400 ids at
-    capacity_factor 2; 800 that of item_emb at MESH_CAPACITY_FACTOR), and
-    every timed row."""
+    """The all-gather's line of the kernels JSON: times at the path's
+    user-table shape in loopback (n 4, C 200 is the bucket of user_emb's 400
+    ids at capacity_factor 2; 800 that of item_emb at MESH_CAPACITY_FACTOR),
+    and every timed row ("loopback copy" or "one-shot")."""
     timed = [r for r in rows if "ms" in r and r["calls"] > 1]
     main_row = next(r for r in timed if not r["across"] and r["n"] == 4 and r["shape"][0] == 200)
     return {
@@ -1320,11 +1380,13 @@ def ring_entry(rows, launches):
         "library_ms": main_row["library_ms"],
         "library": main_row["library"],
         "device_ms": main_row["device_ms"],
-        "hop_us": main_row.get("hop_us"),
+        "rank_us": main_row.get("rank_us"),
+        "design": main_row["design"],
         "shape": [main_row["n"], *main_row["shape"]],
         "dtype": main_row["dtype"],
-        "timed": [{k: r.get(k) for k in ("n", "shape", "across", "ms", "device_ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library", "library_ms", "hop_us")} for r in timed],
+        "timed": [{k: r.get(k) for k in ("n", "shape", "across", "design", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "library", "library_ms", "rank_us")}
+                  for r in timed],
     }
 
 
@@ -1384,13 +1446,14 @@ def main():
         log("flash", json.dumps(row))
 
     # Training: forward and backward at a batch of 128 sequences x 2 heads,
-    # every head dim, both dropout rates, both types; then times at the
+    # every head dim, both dropout rates, both types, the paths' lengths and
+    # the backward's 64-row tile edges (63-65, 128, 129); then times at the
     # checkpoint config's shape (T 100) and the shipped config's (T 200),
     # and at dh 16 (emb 32, 2 heads) and dh 64 (1 head).
     train_rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (16, 32, 64):
-            for t in (1, 77, 100, 200):
+            for t in (1, 63, 64, 65, 77, 100, 128, 129, 200):
                 for rate in (0.0, DROPOUT_RATE):
                     train_rows.append(compare_flash_train(256, t, dh, dtype, rate, gen))
     for row in train_rows:
@@ -1470,6 +1533,7 @@ def main():
         "launches_by_path": bwd_launches,
         "max_abs_err": max(r["bwd_max_abs_err"] for r in f32_train),
         "ms": train_row["bwd_ms"],
+        "device_ms": train_row["bwd_device_ms"],
         "plain_ms": train_row["bwd_plain_ms"],
         "bound_ms": train_row["bwd_bound_ms"],
         "bound_by": train_row["bwd_bound_by"],
@@ -1477,7 +1541,8 @@ def main():
         "shape": train_row["shape"],
         "dtype": train_row["dtype"],
         "rate": train_row["rate"],
-        "timed": [{"shape": r["shape"], "rate": r["rate"], "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+        "timed": [{"shape": r["shape"], "rate": r["rate"], "ms": r["bwd_ms"], "device_ms": r["bwd_device_ms"],
+                   "plain_ms": r["bwd_plain_ms"],
                    "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
                    "library_ms": r["bwd_library_ms"]} for r in timed_train.values()],
     }, {

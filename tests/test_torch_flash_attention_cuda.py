@@ -50,7 +50,9 @@ def _assert_close(got, want, dtype, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh", [16, 32, 64])
-@pytest.mark.parametrize("t", [1, 77, 100, 200])
+# 77, 100, 200: the paths' lengths; 63, 64, 65, 128, 129: the backward's
+# 64-row tile edges.
+@pytest.mark.parametrize("t", [1, 77, 100, 200, 63, 64, 65, 128, 129])
 def test_cuda_kernels_match_plain_versions(t, dh, rate, dtype):
     _cuda()
     q, k, v, do = _inputs(6, t, dh, dtype, seed=t + dh)

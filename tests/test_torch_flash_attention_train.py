@@ -66,7 +66,9 @@ def test_forward_matches_pallas_kernel_at_every_head_dim(dh):
     _close(lse, want_lse, FWD_TOL)
 
 
-@pytest.mark.parametrize("t", [1, 7, 77])
+# 1, 7, 77: short and ragged rows; 64, 65, 129: the card kernel's 64-row
+# tile edges (one full tile, one row past it, two tiles and one row).
+@pytest.mark.parametrize("t", [1, 7, 77, 64, 65, 129])
 def test_backward_matches_pallas_kernel_and_jax_grad(t):
     q, k, v, do = _arrays(4, t, 32, seed=t)
     seed = jnp.zeros((1,), jnp.int32)

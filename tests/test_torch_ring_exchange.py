@@ -5,7 +5,10 @@ through ``rdma_bucketed_gather``, and the checks its CUDA wrapper makes
 before a launch. The kernel itself runs only on a card
 (``tests/test_torch_ring_exchange_cuda.py``)."""
 
+import ctypes
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -114,3 +117,18 @@ def test_wrapper_checks_what_the_kernel_takes(case):
     with pytest.raises(ValueError):
         ring_exchange._check(blocks)
     ring_exchange._check([torch.zeros(8, 16, dtype=torch.bfloat16) for _ in range(2)])  # 32-byte rows pass
+
+
+def test_call_struct_has_the_c_layout():
+    """``_RingCall`` mirrors ``RingCall`` of csrc/ring_allgather.cu field for
+    field: the same names in the same order, four arrays of 16 pointers,
+    four of 16 ints, four ints, a long long and an unsigned (the C layout on
+    a 64-bit host), so the C call reads what the wrapper wrote."""
+    source = (Path(ring_exchange.__file__).parents[2] / "csrc" / "ring_allgather.cu").read_text()
+    body = re.search(r"struct RingCall \{(.*?)\};", source, re.S).group(1)
+    c_fields = re.findall(r"(\w+)(?:\[kMaxRanks\])?;", body)
+    call = ring_exchange._RingCall
+    assert c_fields == [name for name, _ in call._fields_]
+    assert (call.x.offset, call.streams.offset, call.devs.offset, call.group.offset) == (0, 384, 512, 704)
+    assert (call.n.offset, call.flag_stride.offset, call.block_vecs.offset, call.epoch.offset) == (768, 780, 784, 792)
+    assert ctypes.sizeof(call) == 800

@@ -1,7 +1,8 @@
-"""On a card: the ring all-gather CUDA kernel against its plain version, bit
-for bit (it is a copy), with every rank on one card (loopback) and across
-cards where there are several; many calls back to back; the inputs it
-refuses; a launch on a card other than 0; and the sharded trainer on a
+"""On a card: the ring all-gather CUDA kernels against their plain version,
+bit for bit (they copy), with every rank on one card (loopback: the copy
+kernel) and across cards where there are several (the one-shot kernel);
+many calls back to back; the inputs they refuse; a pair of cards without
+peer access; a launch on a card other than 0; and the sharded trainer on a
 (1, 4) mesh of one card against the one-device trainer. Imports nothing of
 JAX, so it runs on the card's machine:
 
@@ -18,6 +19,7 @@ import torch
 
 from beta_recsys_tpu_torch.core.sparse_optim import ShardedSparseEpochTrainer, SparseEpochTrainer
 from beta_recsys_tpu_torch.models.mf import MF
+from beta_recsys_tpu_torch.ops.kernels import ring_exchange
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather, ring_allgather_reference
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh
 
@@ -53,6 +55,47 @@ def _check_equal(blocks):
 def test_loopback_equals_plain_version(n, c):
     _cuda()
     _check_equal(_blocks(["cuda:0"] * n, c, 64, seed=n * c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [8, 200, 201, 8192])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_loopback_copy_at_every_rank_count(n, c, dtype):
+    """The copy kernel: one launch, n stores of every vector it reads, the
+    last CTA ragged (C 201 leaves a partial one), views of one tensor."""
+    _cuda()
+    blocks = _blocks(["cuda:0"] * n, c, 64, dtype, seed=n * 10_000 + c)
+    _check_equal(blocks)
+    outs = ring_allgather(blocks)
+    assert all(o._base is outs[0]._base for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_across_cards_one_shot_every_pair(n):
+    """The one-shot kernel on n cards in both orders, so every ordered pair
+    of cards exchanges flags and stores."""
+    _cuda(n)
+    devices = [f"cuda:{i}" for i in range(n)]
+    for order in (devices, devices[::-1]):
+        for c in (8, 200, 8192):
+            _check_equal(_blocks(order, c, 64, seed=n * 100 + c))
+    _check_equal(_blocks(devices, 200, 64, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_a_pair_without_peer_access_raises(monkeypatch):
+    """A pair of cards with no peer path raises before any launch: the
+    kernel has no host-staged fallback."""
+    _cuda(2)
+    lib = ring_exchange._library()
+    monkeypatch.setattr(ring_exchange, "_RINGS", {})
+    monkeypatch.setattr(lib, "ring_enable_peer", lambda dev, peer: 217 if (dev, peer) == (1, 0) else 0)
+    launches = ring_allgather.launches
+    with pytest.raises(RuntimeError, match="no peer access from cuda:1 to cuda:0"):
+        ring_allgather(_blocks(["cuda:0", "cuda:1"], 8, 64))
+    assert ring_allgather.launches == launches
 
 
 @pytest.mark.cuda
