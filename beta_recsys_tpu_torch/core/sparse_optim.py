@@ -9,7 +9,8 @@ several times in a batch are summed before one moment update.
 
 ``row_update`` picks how the 2-D tables' rows are written back:
   "fused" - the ``fused_rowadam`` CUDA kernel (``ops/kernels/rowadam.py``), in
-    place; on CPU tensors its plain version;
+    place, one launch a step for all of them (``RowAdamTables``, its tables
+    and moments checked once); on CPU tensors its plain version;
   "xla"   - ``sparse_adam_row_update``: gather, torch arithmetic, index_add_;
   "auto"  - "fused" where the tables are on the card, "xla" on the CPU: as
     the JAX package takes its kernel where one exists (the TPU) and "xla"
@@ -25,7 +26,7 @@ row-sharded over a mesh's "model" axis and batches over "data".
 
 import torch
 
-from ..ops.kernels.rowadam import adam_rows, bias_corrections, fused_rowadam
+from ..ops.kernels.rowadam import RowAdamTables, adam_rows, bias_corrections
 from ..parallel.collectives import all_gather, psum
 from ..parallel.embedding import local_psum_gather, local_ring_gather, shard_table
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
@@ -105,6 +106,11 @@ class SparseEpochTrainer(EpochBatches):
         self.dense = {name: p for name, p in params.items() if name not in self.table_roles}
         self.dense_optimizer = dense_optimizer
         self.state = init_sparse_state({k: p.detach() for k, p in self.tables.items()}, self.tables)
+        # The 2-D tables that the kernel updates, one launch a step for all.
+        self.fused = [name for name, table in self.tables.items() if row_update == "fused" and table.dim() == 2]
+        self.row_adam = RowAdamTables(
+            [(self.tables[name].data, *self.state["moments"][name]) for name in self.fused]
+        ) if self.fused else None
 
     def step(self, users, pos, neg):
         """One batch: returns its loss as a 0-d device tensor."""
@@ -123,13 +129,13 @@ class SparseEpochTrainer(EpochBatches):
         step = self.state["step"]
         with torch.no_grad():
             for name, table in self.tables.items():
-                m, v = self.state["moments"][name]
-                ids = role_ids[self.table_roles[name]]
-                if self.row_update == "fused" and table.dim() == 2:
-                    ids_s, g_d = _segment_dedup(ids, g_rows[name])
-                    fused_rowadam(table.data, m, v, ids_s, g_d, bias_corrections(step), self.lr)
-                else:
-                    sparse_adam_row_update(table.data, m, v, ids, g_rows[name], self.lr, step)
+                if name not in self.fused:
+                    m, v = self.state["moments"][name]
+                    sparse_adam_row_update(table.data, m, v, role_ids[self.table_roles[name]], g_rows[name],
+                                           self.lr, step)
+            if self.row_adam is not None:
+                deduped = [_segment_dedup(role_ids[self.table_roles[name]], g_rows[name]) for name in self.fused]
+                self.row_adam([ids for ids, _ in deduped], [g for _, g in deduped], bias_corrections(step), self.lr)
         for p, g in zip(self.dense.values(), grads[len(rows):]):
             p.grad = g
         self.dense_optimizer.step()

@@ -88,6 +88,9 @@
 //     HBM3, 700 W).
 //   The kernels do ~16*dh FLOPs per pair (q.k and dout.v are recomputed in
 //   both, dq takes two products).
+//   The tile staging, the mask bytes, the score product and the score
+//   pass's lane layout live in flash_attention_common.cuh, one copy for this
+//   and the forward kernel, so both sum every score in the same order.
 // Measured (NVIDIA H100 80GB HBM3, 700 W; port_tools/time_kernels.py, calls
 // queued on the device behind a sleep kernel, the first port in the same
 // call): 56.8-56.9 us at 256 x 100 x 32 float32 rate 0.1 (first port 91.6),
@@ -106,14 +109,12 @@
 
 namespace {
 
+using flash::kGroups;
 using flash::kLog2e;
-
-constexpr int kTile = flash::kRows;  // query rows or keys of a tile (64)
-constexpr int kThreads = 256;
-constexpr int kWld = kTile + 4;      // row stride of the 64 x 64 tiles
-constexpr int kGroups = kTile / 4;   // mask bytes a row: 4 keys each
-
-static_assert(flash::kKeys == kTile, "query and key tiles are both 64");
+using flash::kThreads;
+using flash::kTile;
+using flash::kWld;
+using flash::ScoreLane;
 
 // A CTA's shared memory (dynamic): four (64, dh) row tiles, the two 64 x 64
 // tiles of the products, the staged query rows' lse and D, and
@@ -132,28 +133,16 @@ struct Smem {
   uint8_t mask[kTile * kGroups];
 };
 
-// Rows r0 .. r0 + 63 of two (seq, DH) arrays into two row tiles, float32,
-// zeros past seq. Every thread moves DH / 16 float4 of each.
-template <int DH, typename T>
-__device__ __forceinline__ void stage2(float* da, const T* sa, float* db, const T* sb, int r0, int seq) {
-  constexpr int kLd = DH + 4;
-  constexpr int kVecs = kTile * DH / 4;
-  static_assert(kVecs % kThreads == 0, "every thread moves the same number of vectors");
-#pragma unroll
-  for (int it = 0; it < kVecs / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / (DH / 4);
-    const int d = (i % (DH / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 y = x;
-    if (r0 + r < seq) {
-      const size_t at = static_cast<size_t>(r0 + r) * DH + d;
-      x = flash::load4(sa + at);
-      y = flash::load4(sb + at);
-    }
-    *reinterpret_cast<float4*>(da + r * kLd + d) = x;
-    *reinterpret_cast<float4*>(db + r * kLd + d) = y;
-  }
+// P_ij = exp(s_ij * scale - lse_i) from the raw score s_ij, as the plain
+// version forms it: s * scale rounded on its own (no fmaf), then lse taken
+// away. The forward sums s in the same order (flash::score_tile), so for a
+// row's top key s * scale rounds to the value its lse was built on, and P
+// of a saturated row is exactly 1 at any magnitude (an exact product would
+// leave lse's rounding in the exponent, up to 4 at lse 1e8, and a gradient
+// that does not vanish). The exponent cannot pass 0 then; the clamp keeps P
+// a probability for an lse from elsewhere.
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return exp2f(fminf(__fsub_rn(__fmul_rn(s, scale), lse), 0.f) * kLog2e);
 }
 
 // 64 values src[r0 ..] into dst, zeros past seq.
@@ -161,105 +150,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
   if (threadIdx.x < kTile) {
     dst[threadIdx.x] = r0 + threadIdx.x < seq ? src[r0 + threadIdx.x] : 0.f;
   }
-}
-
-// P_ij = exp(s_ij * scale - lse_i) from the raw score s_ij, as the plain
-// version forms it: s * scale rounded on its own (no fmaf), then lse taken
-// away. The forward sums s in the same order, so for a row's top key s *
-// scale rounds to the value its lse was built on, and P of a saturated row
-// is exactly 1 at any magnitude (an exact product would leave lse's
-// rounding in the exponent, up to 4 at lse 1e8, and a gradient that does
-// not vanish). The exponent cannot pass 0 then; the clamp keeps P a
-// probability for an lse from elsewhere.
-__device__ __forceinline__ float prob(float s, float scale, float lse) {
-  return exp2f(fminf(__fsub_rn(__fmul_rn(s, scale), lse), 0.f) * kLog2e);
-}
-
-// The keep bits of entries (q0 + r, k0 + c): byte r * 16 + c / 4, bit c % 4.
-// One Philox call gives the four keys of a byte (the forward's counter
-// (col / 4, row, n)); bytes that no visible entry reads stay 0.
-__device__ __forceinline__ void stage_mask(uint8_t* mask, philox::Key key, int n, int q0, int k0, int seq,
-                                           uint32_t threshold) {
-#pragma unroll
-  for (int it = 0; it < kTile * kGroups / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int row = q0 + i / kGroups;
-    const int col = k0 + 4 * (i % kGroups);
-    uint32_t byte = 0;
-    if (row < seq && col <= row) {
-      const uint4 b = philox::bits4(key, n, row, col / 4);
-      byte = static_cast<uint32_t>(b.x >= threshold) | static_cast<uint32_t>(b.y >= threshold) << 1 |
-             static_cast<uint32_t>(b.z >= threshold) << 2 | static_cast<uint32_t>(b.w >= threshold) << 3;
-    }
-    mask[i] = static_cast<uint8_t>(byte);
-  }
-}
-
-// s[i][j] = sum_d a[r0 + i][d] * b[tx + 16 j][d] for the key groups j < NB:
-// a thread's 4 x 4 micro-tile of a 64 x 64 product.
-template <int DH, int NB>
-__device__ __forceinline__ void score_tile(const float* a, const float* b, int r0, int tx, float (&s)[4][4]) {
-  constexpr int kLd = DH + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    float4 x[4];
-    float4 y[NB];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + (r0 + i) * kLd + d);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
-        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
-        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
-        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
-      }
-    }
-  }
-}
-
-// S = q k^T and dP = dout v^T over the first nb key groups (a warp-uniform
-// count, 1-4), each count its own unrolled code.
-template <int DH>
-__device__ __forceinline__ void score_pair(const Smem<DH>& sm, int r0, int tx, int nb, float (&s)[4][4],
-                                           float (&dp)[4][4]) {
-  switch (nb) {
-    case 1:
-      score_tile<DH, 1>(sm.q, sm.k, r0, tx, s);
-      score_tile<DH, 1>(sm.dout, sm.v, r0, tx, dp);
-      break;
-    case 2:
-      score_tile<DH, 2>(sm.q, sm.k, r0, tx, s);
-      score_tile<DH, 2>(sm.dout, sm.v, r0, tx, dp);
-      break;
-    case 3:
-      score_tile<DH, 3>(sm.q, sm.k, r0, tx, s);
-      score_tile<DH, 3>(sm.dout, sm.v, r0, tx, dp);
-      break;
-    default:
-      score_tile<DH, 4>(sm.q, sm.k, r0, tx, s);
-      score_tile<DH, 4>(sm.dout, sm.v, r0, tx, dp);
-  }
-}
-
-__device__ __forceinline__ void axpy4(float (&acc)[4], float w, float4 m) {
-  acc[0] = fmaf(w, m.x, acc[0]);
-  acc[1] = fmaf(w, m.y, acc[1]);
-  acc[2] = fmaf(w, m.z, acc[2]);
-  acc[3] = fmaf(w, m.w, acc[3]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_scaled(T* dst, const float (&x)[4], float mul) {
-  flash::store4(dst, make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul));
 }
 
 // N consecutive floats of shared memory in one load (N = 1, 2 or 4).
@@ -280,18 +170,6 @@ __device__ __forceinline__ void load_vec(const float* p, float (&o)[N]) {
   }
 }
 
-// Score-pass geometry of a thread: rows r0 .. r0 + 3 of the tile, keys
-// tx + 16 j; warp w holds rows 8w .. 8w + 7. It computes the key groups of
-// 16 that hold a key before T and, on a diagonal tile, at or before its last
-// row: the others are all masked.
-struct ScoreLane {
-  int tx, r0, warp;
-  __device__ ScoreLane() : tx(threadIdx.x & 15), r0(4 * (threadIdx.x >> 4)), warp(threadIdx.x >> 5) {}
-  __device__ int groups(bool diag, int keys) const {
-    return min(diag ? (8 * warp + 7) / 16 + 1 : 4, (keys + 15) / 16);
-  }
-};
-
 // Product geometry of a thread: outputs x0 .. x0 + kXt - 1 of the tile,
 // elements 4 dg .. 4 dg + 3 of dh; its warp's outputs are x_lo .. x_hi.
 template <int DH>
@@ -305,6 +183,30 @@ struct ProductLane {
         x_lo(kXt * ((threadIdx.x & ~31) / kDg)),
         x_hi(kXt * (((threadIdx.x & ~31) + 31) / kDg) + kXt - 1) {}
 };
+
+// S = q k^T and dP = dout v^T over the first nb key groups (a warp-uniform
+// count, 1-4), each count its own unrolled code.
+template <int DH>
+__device__ __forceinline__ void score_pair(const Smem<DH>& sm, int r0, int tx, int nb, float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+  switch (nb) {
+    case 1:
+      flash::score_tile<DH, 1>(sm.q, sm.k, r0, tx, s);
+      flash::score_tile<DH, 1>(sm.dout, sm.v, r0, tx, dp);
+      break;
+    case 2:
+      flash::score_tile<DH, 2>(sm.q, sm.k, r0, tx, s);
+      flash::score_tile<DH, 2>(sm.dout, sm.v, r0, tx, dp);
+      break;
+    case 3:
+      flash::score_tile<DH, 3>(sm.q, sm.k, r0, tx, s);
+      flash::score_tile<DH, 3>(sm.dout, sm.v, r0, tx, dp);
+      break;
+    default:
+      flash::score_tile<DH, 4>(sm.q, sm.k, r0, tx, s);
+      flash::score_tile<DH, 4>(sm.dout, sm.v, r0, tx, dp);
+  }
+}
 
 // acc1[t] += sum_y w1[y][x0 + t] m1[y][4 dg ..], and the same for acc2, over
 // y0 <= y < y1 (bounds that are the same for the whole warp): a thread's
@@ -325,8 +227,8 @@ __device__ __forceinline__ void product2(float (&acc1)[DH / 16][4], const float*
     const float4 q = *reinterpret_cast<const float4*>(m2 + y * kLd + 4 * pl.dg);
 #pragma unroll
     for (int t = 0; t < kXt; ++t) {
-      axpy4(acc1[t], a[t], p);
-      axpy4(acc2[t], b[t], q);
+      flash::axpy4(acc1[t], a[t], p);
+      flash::axpy4(acc2[t], b[t], q);
     }
   }
 }
@@ -348,7 +250,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const philox::Key key = dropout ? philox::key_of(seed) : philox::Key{0u, 0u};
   const bool rows_in = q0 + 8 * sl.warp < seq;
 
-  stage2<DH>(sm.q, q + head, sm.dout, dout + head, q0, seq);
+  flash::stage2<DH>(sm.q, q + head, sm.dout, dout + head, q0, seq);
   stage_rows(sm.lse, lse + static_cast<size_t>(n) * seq, q0, seq);
   float acc_a[kXt][4] = {};  // sum_j P dP k_j
   float acc_b[kXt][4] = {};  // sum_j P k_j
@@ -356,8 +258,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int key_end = min(q0 + kTile, seq);
   for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    stage2<DH>(sm.k, k + head, sm.v, v + head, k0, seq);
-    if (dropout) stage_mask(sm.mask, key, n, q0, k0, seq, threshold);
+    flash::stage2<DH>(sm.k, k + head, sm.v, v + head, k0, seq);
+    if (dropout) flash::stage_mask(sm.mask, key, n, q0, k0, seq, threshold);
     __syncthreads();
     const int nb = sl.groups(k0 == q0, seq - k0);
     float s[4][4], dp[4][4];
@@ -375,7 +277,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (rows_in && j < nb && q0 + r < seq && k0 + col <= q0 + r) {
           pv[i] = prob(s[i][j], scale, sm.lse[r]);
           float dpv = dp[i][j];
-          if (dropout) dpv = (sm.mask[r * kGroups + col / 4] >> (col % 4)) & 1 ? dpv * keep_scale : 0.f;
+          if (dropout) dpv = flash::kept(sm.mask, r, col) ? dpv * keep_scale : 0.f;
           pd[i] = pv[i] * dpv;
           d_part[i] += pd[i];
         }
@@ -407,7 +309,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float g[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) g[e] = fmaf(-di, acc_b[t][e], acc_a[t][e]);
-      store_scaled(dq + head + static_cast<size_t>(row) * DH + 4 * pl.dg, g, scale);
+      flash::store_scaled(dq + head + static_cast<size_t>(row) * DH + 4 * pl.dg, g, scale);
       if (pl.dg == 0) delta[static_cast<size_t>(n) * seq + row] = di;
     }
   }
@@ -430,15 +332,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const size_t head = static_cast<size_t>(n) * seq * DH;
   const philox::Key key = dropout ? philox::key_of(seed) : philox::Key{0u, 0u};
 
-  stage2<DH>(sm.k, k + head, sm.v, v + head, k0, seq);
+  flash::stage2<DH>(sm.k, k + head, sm.v, v + head, k0, seq);
   float acc_k[kXt][4] = {};
   float acc_v[kXt][4] = {};
 
   for (int q0 = k0; q0 < seq; q0 += kTile) {
-    stage2<DH>(sm.q, q + head, sm.dout, dout + head, q0, seq);
+    flash::stage2<DH>(sm.q, q + head, sm.dout, dout + head, q0, seq);
     stage_rows(sm.lse, lse + static_cast<size_t>(n) * seq, q0, seq);
     stage_rows(sm.delta, delta + static_cast<size_t>(n) * seq, q0, seq);
-    if (dropout) stage_mask(sm.mask, key, n, q0, k0, seq, threshold);
+    if (dropout) flash::stage_mask(sm.mask, key, n, q0, k0, seq, threshold);
     __syncthreads();
     const bool rows_in = q0 + 8 * sl.warp < seq;
     const int nb = sl.groups(q0 == k0, seq - k0);
@@ -459,9 +361,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
           float dpv = dp[i][j];
           pk = p;
           if (dropout) {
-            const bool kept = (sm.mask[r * kGroups + col / 4] >> (col % 4)) & 1;
-            pk = kept ? p * keep_scale : 0.f;
-            dpv = kept ? dpv * keep_scale : 0.f;
+            const bool keep = flash::kept(sm.mask, r, col);
+            pk = keep ? p * keep_scale : 0.f;
+            dpv = keep ? dpv * keep_scale : 0.f;
           }
           ds = p * (dpv - di);
         }
@@ -481,8 +383,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const int col = k0 + pl.x0 + t;
     if (col < seq) {
       const size_t at = head + static_cast<size_t>(col) * DH + 4 * pl.dg;
-      store_scaled(dk + at, acc_k[t], scale);
-      store_scaled(dv + at, acc_v[t], 1.f);
+      flash::store_scaled(dk + at, acc_k[t], scale);
+      flash::store_scaled(dv + at, acc_v[t], 1.f);
     }
   }
 }

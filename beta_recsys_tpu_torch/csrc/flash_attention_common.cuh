@@ -1,6 +1,14 @@
-// What the flash-attention forward and backward kernels share: tile sizes and
-// 4-element row moves between device memory (float32 or bfloat16) and float32
-// registers or shared memory.
+// What the flash-attention forward and backward kernels share: the tile
+// geometry, 4-element moves between device memory (float32 or bfloat16) and
+// float32 shared memory or registers, the staging of row tiles and of the
+// dropout mask, the register-tiled 64 x 64 score product and the lane
+// layout of the score pass.
+//
+// Both kernels form S = q k^T with score_tile: the same sum over d from 0
+// upward in float4 steps by fmaf, so the backward recomputes the forward's
+// score bits exactly. The backward's P = exp(round(s * scale) - lse) is
+// exactly 1 at a saturated row's top key only then (flash_attention_bwd.cu,
+// prob).
 
 #pragma once
 
@@ -8,13 +16,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace flash {
 
-constexpr int kRows = 64;  // query rows of a query tile
-constexpr int kKeys = 64;  // key rows of a key tile; == kRows
+// Query and key tiles are both 64 rows, so only the diagonal tile needs the
+// causal mask.
+constexpr int kTile = 64;            // query rows or keys of a tile
+constexpr int kThreads = 256;        // threads of a CTA
+constexpr int kWld = kTile + 4;      // row stride of the 64 x 64 tiles
+constexpr int kGroups = kTile / 4;   // mask bytes a row: 4 keys each
 constexpr float kLog2e = 1.4426950408889634f;
-
-static_assert(kKeys == kRows, "only the diagonal tile may need the causal mask");
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -43,75 +55,124 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// n elements of a row into float32 registers (zeros when !valid).
-template <int W, typename T>
-__device__ __forceinline__ void load_row(float (&dst)[W], const T* src, bool valid) {
+// Rows r0 .. r0 + 63 of two (seq, DH) arrays into two row tiles of stride
+// DH + 4, float32, zeros past seq, their loads issued together. Every thread
+// moves DH / 16 float4 of each.
+template <int DH, typename T>
+__device__ __forceinline__ void stage2(float* da, const T* sa, float* db, const T* sb, int r0, int seq) {
+  constexpr int kLd = DH + 4;
+  constexpr int kVecs = kTile * DH / 4;
+  static_assert(kVecs % kThreads == 0, "every thread moves the same number of vectors");
 #pragma unroll
-  for (int d = 0; d < W; d += 4) {
-    const float4 x = valid ? load4(src + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[d] = x.x;
-    dst[d + 1] = x.y;
-    dst[d + 2] = x.z;
-    dst[d + 3] = x.w;
-  }
-}
-
-template <int W, typename T>
-__device__ __forceinline__ void store_row(T* dst, const float (&src)[W], float mul) {
-#pragma unroll
-  for (int d = 0; d < W; d += 4) {
-    store4(dst + d, make_float4(src[d] * mul, src[d + 1] * mul, src[d + 2] * mul, src[d + 3] * mul));
-  }
-}
-
-// sum_d a[d] * b[d], b a float32 row in shared memory.
-template <int W>
-__device__ __forceinline__ float dot_shared(const float (&a)[W], const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < W; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    acc = fmaf(a[d], x.x, acc);
-    acc = fmaf(a[d + 1], x.y, acc);
-    acc = fmaf(a[d + 2], x.z, acc);
-    acc = fmaf(a[d + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// acc[d] += w * b[d], b a float32 row in shared memory.
-template <int W>
-__device__ __forceinline__ void axpy_shared(float (&acc)[W], float w, const float* b) {
-#pragma unroll
-  for (int d = 0; d < W; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    acc[d] = fmaf(w, x.x, acc[d]);
-    acc[d + 1] = fmaf(w, x.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, x.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, x.w, acc[d + 3]);
-  }
-}
-
-// Two 64-row tiles of DH elements, rows r0 .. r0 + 63 of the (n, seq, DH)
-// rows at src_a and src_b, into float32 tiles in shared memory, zeros past
-// seq. All kThreads threads of the block take part; the stride is a
-// compile-time constant, so the loop unrolls and keeps its loads in flight.
-template <int DH, int kThreads, typename T>
-__device__ __forceinline__ void stage_tiles(float* a, const T* src_a, float* b, const T* src_b, int r0,
-                                            int seq) {
-  static_assert((kRows * DH) % (kThreads * 4) == 0, "every thread moves the same number of vectors");
-#pragma unroll
-  for (int i = threadIdx.x * 4; i < kRows * DH; i += kThreads * 4) {
+  for (int it = 0; it < kVecs / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / (DH / 4);
+    const int d = (i % (DH / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 y = x;
-    if (r0 + i / DH < seq) {
-      const size_t at = static_cast<size_t>(r0) * DH + i;
-      x = load4(src_a + at);
-      y = load4(src_b + at);
+    if (r0 + r < seq) {
+      const size_t at = static_cast<size_t>(r0 + r) * DH + d;
+      x = load4(sa + at);
+      y = load4(sb + at);
     }
-    store4(a + i, x);
-    store4(b + i, y);
+    *reinterpret_cast<float4*>(da + r * kLd + d) = x;
+    *reinterpret_cast<float4*>(db + r * kLd + d) = y;
   }
 }
+
+// The keep bits of entries (q0 + r, k0 + c): byte r * 16 + c / 4, bit c % 4.
+// One Philox call gives the four keys of a byte (counter (col / 4, row, n));
+// bytes that no visible entry reads stay 0.
+__device__ __forceinline__ void stage_mask(uint8_t* mask, philox::Key key, int n, int q0, int k0, int seq,
+                                           uint32_t threshold) {
+#pragma unroll
+  for (int it = 0; it < kTile * kGroups / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int row = q0 + i / kGroups;
+    const int col = k0 + 4 * (i % kGroups);
+    uint32_t byte = 0;
+    if (row < seq && col <= row) {
+      const uint4 b = philox::bits4(key, n, row, col / 4);
+      byte = static_cast<uint32_t>(b.x >= threshold) | static_cast<uint32_t>(b.y >= threshold) << 1 |
+             static_cast<uint32_t>(b.z >= threshold) << 2 | static_cast<uint32_t>(b.w >= threshold) << 3;
+    }
+    mask[i] = static_cast<uint8_t>(byte);
+  }
+}
+
+// Whether entry (r, c) of the tile was kept.
+__device__ __forceinline__ bool kept(const uint8_t* mask, int r, int c) {
+  return (mask[r * kGroups + c / 4] >> (c % 4)) & 1;
+}
+
+// s[i][j] = sum_d a[r0 + i][d] * b[tx + 16 j][d] for the key groups j < NB:
+// a thread's 4 x 4 micro-tile of a 64 x 64 product of two row tiles of
+// stride DH + 4, summed over d from 0 upward.
+template <int DH, int NB>
+__device__ __forceinline__ void score_tile(const float* a, const float* b, int r0, int tx, float (&s)[4][4]) {
+  constexpr int kLd = DH + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    float4 x[4];
+    float4 y[NB];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + (r0 + i) * kLd + d);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// score_tile over the first nb key groups (a warp-uniform count, 1-4), each
+// count its own unrolled code.
+template <int DH>
+__device__ __forceinline__ void score_groups(const float* a, const float* b, int r0, int tx, int nb,
+                                             float (&s)[4][4]) {
+  switch (nb) {
+    case 1: score_tile<DH, 1>(a, b, r0, tx, s); break;
+    case 2: score_tile<DH, 2>(a, b, r0, tx, s); break;
+    case 3: score_tile<DH, 3>(a, b, r0, tx, s); break;
+    default: score_tile<DH, 4>(a, b, r0, tx, s);
+  }
+}
+
+__device__ __forceinline__ void axpy4(float (&acc)[4], float w, float4 m) {
+  acc[0] = fmaf(w, m.x, acc[0]);
+  acc[1] = fmaf(w, m.y, acc[1]);
+  acc[2] = fmaf(w, m.z, acc[2]);
+  acc[3] = fmaf(w, m.w, acc[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_scaled(T* dst, const float (&x)[4], float mul) {
+  store4(dst, make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul));
+}
+
+// Score-pass geometry of a thread: rows r0 .. r0 + 3 of the tile, keys
+// tx + 16 j; warp w holds rows 8w .. 8w + 7, and the 16 lanes of a row are
+// the 16 lanes of a half-warp. It computes the key groups of 16 that hold a
+// key before T and, on a diagonal tile, at or before its last row: the
+// others are all masked.
+struct ScoreLane {
+  int tx, r0, warp;
+  __device__ ScoreLane() : tx(threadIdx.x & 15), r0(4 * (threadIdx.x >> 4)), warp(threadIdx.x >> 5) {}
+  __device__ int groups(bool diag, int keys) const {
+    return min(diag ? (8 * warp + 7) / 16 + 1 : 4, (keys + 15) / 16);
+  }
+};
 
 }  // namespace flash

@@ -18,6 +18,7 @@ kernels or raises. The kernels take head dims 16, 32 and 64.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -196,6 +197,7 @@ def _check_kernel_inputs(q, *others):
             raise ValueError("every input must be contiguous and 16-byte aligned")
 
 
+@functools.cache
 def _kernel_function(name):
     from ._build import load_library
 

@@ -8,7 +8,8 @@ Phases, each printed with the seconds elapsed:
   1. build the port's CUDA kernels from csrc/ (one nvcc call each, all
      started together);
   2. each kernel against its plain PyTorch version on the card, at the shapes
-     its paths give it (fused_rowadam also at a table-scale shape; the flash
+     its paths give it (fused_rowadam one table a launch, the MF step's two
+     tables in one grouped launch, and a table-scale shape; the flash
      forward and backward at head dims 16, 32 and 64, dropout rates 0 and
      0.1, float32 and bfloat16, T up to 200 with the backward's 64-row tile
      edges, their dropout masks bit for bit), with times (kernel, plain, one
@@ -16,7 +17,7 @@ Phases, each printed with the seconds elapsed:
      kernel, its time on the device) and the least time the card could take;
   3. train MF + BPR (configs/mf_default.json, lazy Adam, row_update "fused")
      on the structured synthetic split through MatrixFactorization(cfg)
-     .train(data): 2 fused_rowadam launches a step, best valid and test
+     .train(data): 1 fused_rowadam launch a step, best valid and test
      ndcg@10 inside the JAX package's band; then test() and recommend();
   4. train MF with the dense trainer (mf_default.json as it is): test
      ndcg@10 inside the JAX package's band;
@@ -154,8 +155,9 @@ DENSE_BAND = {"test": (0.1893, 0.0097)}
 SASREC_BAND = {"valid": (0.20811834037303925, 0.004043200216505683),
                "test": (0.1901898756623268, 0.00438203838237327)}
 # fused_rowadam against its plain version, as tests/test_rowadam_kernel.py
-# holds the JAX kernel: the same float32 arithmetic, contracted into FMAs
-# by nvcc. Untouched rows must be bit-identical.
+# holds the JAX kernel: the same float32 operations, each rounded on its own
+# in both (max_abs_err 0 expected; the tolerance is the JAX kernel test's).
+# Untouched rows must be bit-identical.
 ROWADAM_RTOL, ROWADAM_ATOL = 1e-5, 1e-6
 # Kernel against plain version, same inputs on the card. float32: the two sum
 # in other orders and the kernel exponentiates in base 2, a few ulp apart.
@@ -563,6 +565,76 @@ def compare_rowadam(n_rows, n_ids, d, seed, zipf=False, timed=False):
     return row
 
 
+def compare_rowadam_group(cases, seed, timed=False):
+    """The grouped kernel, one launch for the tables of ``cases`` ((n_rows,
+    L, d) each, uniform ids) through a group built beforehand as the trainer
+    builds it, against the plain version of each table in order; returns a
+    row. Also times the group, the plain versions and one
+    torch.optim.SparseAdam step over all the tables when ``timed``."""
+    # Imported here: port_tools/time_kernels.py imports this module beside
+    # older checkouts of the package, which have no grouped entry.
+    from beta_recsys_tpu_torch.ops.kernels.rowadam import RowAdamTables, fused_rowadam_tables_reference
+
+    tables, ids, grads, coos, untouched = [], [], [], [], []
+    for i, (n_rows, n_ids, d) in enumerate(cases):
+        table, m, v, idx, g = rowadam_inputs(n_rows, n_ids, d, seed + i, "cuda")
+        ids_s, g_d = _segment_dedup(idx, g)
+        tables.append((table, m, v))
+        ids.append(ids_s)
+        grads.append(g_d)
+        coos.append(torch.sparse_coo_tensor(idx[None], g, table.shape))
+        mask = torch.ones(n_rows, dtype=torch.bool, device="cuda")
+        mask[ids_s[(g_d != 0).any(dim=1)]] = False
+        untouched.append(mask)
+    bc, lr = bias_corrections(3), 0.05
+    want = fused_rowadam_tables_reference([tuple(x.clone() for x in t) for t in tables], ids, grads, bc, lr)
+    got = [tuple(x.clone() for x in t) for t in tables]
+    group = RowAdamTables(got)
+    launches = fused_rowadam.launches
+    group(ids, grads, bc, lr)
+    torch.cuda.synchronize()
+    row = {"shapes": [[n_rows, d, n_ids] for n_rows, n_ids, d in cases],
+           "touched_rows": sum(int((~u).sum()) for u in untouched), "max_abs_err": 0.0}
+    if fused_rowadam.launches != launches + 1:
+        fail(f"a grouped fused_rowadam call launched {fused_rowadam.launches - launches} times, not once: {row}")
+    for g_t, w_t, orig, u in zip(got, want, tables, untouched):
+        for name, g, w, o in zip(("table", "m", "v"), g_t, w_t, orig):
+            err = (g - w).abs()
+            row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+            if not bool((err <= ROWADAM_ATOL + ROWADAM_RTOL * w.abs()).all()) or not torch.isfinite(g).all():
+                fail(f"grouped fused_rowadam {name} disagrees with the plain version: {row}")
+            if not torch.equal(g[u], o[u]):
+                fail(f"grouped fused_rowadam wrote {name} rows it was not given a gradient for: {row}")
+    if timed:
+        work = [tuple(x.clone() for x in t) for t in tables]
+        work_group = RowAdamTables(work)
+
+        def kernel():
+            work_group(ids, grads, bc, lr)
+
+        row["ms"] = cuda_ms(kernel)
+        row["queued_ms"] = queued_ms(kernel)
+        row["device_ms"] = kernel_device_ms(kernel, "rowadam_kernel")
+        row["plain_ms"] = cuda_ms(lambda: fused_rowadam_tables_reference(work, ids, grads, bc, lr))
+        params = [torch.nn.Parameter(t[0].clone()) for t in tables]
+        sparse_adam = torch.optim.SparseAdam(params, lr=lr)
+
+        def library():
+            for p, coo in zip(params, coos):
+                p.grad = coo
+            sparse_adam.step()
+
+        row["library_ms"] = cuda_ms(library)
+        bounds = [rowadam_bound(int((~u).sum()), d, n_ids)[0] for u, (_, n_ids, d) in zip(untouched, cases)]
+        row["bound_ms"], row["bound_by"] = sum(bounds), "bytes"
+        device = "not measured" if row["device_ms"] is None else f"{row['device_ms'] * 1e3:.2f} us"
+        log("rowadam", f"one launch for {row['shapes']} ([n_rows, d, L] each), {row['touched_rows']} touched rows: "
+            f"call {row['ms'] * 1e3:.2f} us, queued on the device {row['queued_ms'] * 1e3:.2f} us (kernel alone "
+            f"{device}), plain {row['plain_ms'] * 1e3:.2f} us, SparseAdam {row['library_ms'] * 1e3:.2f} us, "
+            f"bound {row['bound_ms'] * 1e3:.3f} us by bytes")
+    return row
+
+
 def mf_split():
     return BaseData(load_split_data(SPLIT, n_test=1))
 
@@ -624,7 +696,7 @@ def mf_sparse_training(seed, root_dir):
     """Phase 3. Returns fused_rowadam's launches on the path (train() alone)."""
     rec, result, launches, res = train_mf("mf-sparse", seed, root_dir, sparse_optim=True, row_update="fused")
     steps = len(rec.engine.bookkeeper.history) * rec.engine.epoch_fn.num_batches
-    check_launches("fused_rowadam", "mf-sparse", launches, 2 * steps)
+    check_launches("fused_rowadam", "mf-sparse", launches, steps)
     log("mf-sparse", in_band("best valid ndcg@10", result["valid_metric"], SPARSE_BAND["valid"]) + "; "
         + in_band("test ndcg@10", res["ndcg@10"], SPARSE_BAND["test"]))
     check_mf_serving("mf-sparse", rec)
@@ -1467,8 +1539,11 @@ def main():
                                (256, 200, 32, 0.0), (256, 100, 16, DROPOUT_RATE), (128, 100, 64, DROPOUT_RATE))
     }
 
-    # The MF path's two launches a step (user_emb with L = B, item_emb with
-    # L = 2B at B = 400), a table-scale shape, and ragged or narrow widths.
+    # The MF path's step in one launch (user_emb with L = B, item_emb with
+    # L = 2B at B = 400), each of its tables alone, a table-scale shape, and
+    # ragged or narrow widths.
+    mf_step_row = compare_rowadam_group([(943, 400, 64), (1682, 800, 64)], args.seed, timed=True)
+    log("rowadam", f"mf_step: {json.dumps(mf_step_row)}")
     rowadam_rows = {
         "user_emb": compare_rowadam(943, 400, 64, args.seed, timed=True),
         "item_emb": compare_rowadam(1682, 800, 64, args.seed + 1, timed=True),
@@ -1503,7 +1578,7 @@ def main():
 
     main_row = rows[(1886, 100, torch.float32)]
     train_row = timed_train[(256, 100, 32, DROPOUT_RATE)]
-    path_row = rowadam_rows["item_emb"]
+    path_row = mf_step_row
     f32_train = [r for r in train_rows if r["dtype"] == "float32"]
     kernels = [{
         "name": "flash_causal_attention_fwd",
@@ -1552,14 +1627,15 @@ def main():
         "replaces": "beta_recsys_tpu/ops/pallas/rowadam.py:53",
         "launches": sum(adam_launches.values()),
         "launches_by_path": adam_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rowadam_rows.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in [*rowadam_rows.values(), path_row]),
         "ms": path_row["ms"],
         "plain_ms": path_row["plain_ms"],
         "bound_ms": path_row["bound_ms"],
         "bound_by": path_row["bound_by"],
         "library_ms": path_row["library_ms"],
         "device_ms": path_row["device_ms"],
-        "shape": path_row["shape"] + [path_row["n_ids"]],
+        "queued_ms": path_row["queued_ms"],
+        "shapes": path_row["shapes"],
         "dtype": "float32",
         "timed": {key: {k: rowadam_rows[key][k] for k in ("shape", "n_ids", "ids", "touched_rows", "ms", "device_ms",
                                                          "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the flash-attention backward and the all-gather of one checkout of
-the port.
+"""Time the flash-attention forward and backward, ``fused_rowadam`` and the
+all-gather of one checkout of the port.
 
-    python3 port_tools/time_kernels.py <checkout root> <label> [flash] [ring] [across]
+    python3 port_tools/time_kernels.py <checkout root> <label> [fwd] [flash] [rowadam] [ring] [across]
 
 Needs a GPU. Imports ``beta_recsys_tpu_torch`` from ``<checkout root>``
 (building its kernels there, in ``build/torch_kernels/``) and the timers of
@@ -21,10 +21,27 @@ the card, and for each shape
 - a checksum of the outputs, which two checkouts must share up to float
   rounding (bit for bit for the all-gather).
 
-Groups (all three when none is named):
+Groups (``fwd``, ``flash``, ``rowadam``, ``ring`` and ``across`` when none
+is named):
 
+- ``fwd``: the forward at the serving shapes 1886 x 100 x 32 and
+  8192 x 200 x 32 (rate 0) and the training shapes 256 x 100 x 32 (rates
+  0.1 and 0), 256 x 200 x 32, 256 x 100 x 16 and 128 x 100 x 64 (rate
+  0.1), float32;
 - ``flash``: the backward at N 256 x T 100 x dh 32 (rates 0.1 and 0),
   T 200 (rate 0.1), 256 x 100 x 16 and 128 x 100 x 64 (rate 0.1), float32;
+- ``rowadam``: one mf-sparse step's row updates (943 x 64 with L 400 and
+  1682 x 64 with L 800 uniform ids) and a table-scale update (1,000,000 x
+  64, L 16,384 zipf ids), ids deduplicated as the trainer does. A checkout
+  with ``RowAdamTables`` makes one grouped call a step through a group
+  built beforehand, as its trainer does; an older one calls
+  ``fused_rowadam`` once a table;
+- ``epochs`` (only when named): training epochs on the structured split
+  through the checkout's trainers, the kernels' end-to-end effect: MF + BPR
+  lazy Adam at ``configs/mf_default.json`` with row_update "fused" (6
+  epochs of 246 steps) and SASRec at the trained checkpoint's config (20
+  epochs of 7 steps); examples/s or sequences/s of each epoch (host clock,
+  ending in the epoch's loss read) and ``fused_rowadam`` launches a step;
 - ``ring``: the all-gather at n 4 x (C, 64) float32 for C 200, 800 and 8192,
   every rank on cuda:0;
 - ``across``: the same shapes with rank r on cuda:r, and
@@ -48,6 +65,8 @@ sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup  # noqa: E402
+from beta_recsys_tpu_torch.ops.kernels import rowadam  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
     flash_causal_attention_bwd,
@@ -56,6 +75,10 @@ from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather  # no
 
 FLASH_SHAPES = ((256, 100, 32, 0.1), (256, 100, 32, 0.0), (256, 200, 32, 0.1), (256, 100, 16, 0.1),
                 (128, 100, 64, 0.1))
+FWD_SHAPES = ((1886, 100, 32, 0.0), (8192, 200, 32, 0.0), *FLASH_SHAPES)
+# (name, [(n_rows, L, d, zipf)] a call): the tables one call updates.
+ROWADAM_CASES = (("mf-step", [(943, 400, 64, False), (1682, 800, 64, False)]),
+                 ("table-scale", [(1_000_000, 16_384, 64, True)]))
 RING_CS = (200, 800, 8192)
 
 
@@ -90,6 +113,92 @@ def flash_rows(out, gen):
             "checksum": [float(g.double().abs().sum()) for g in grads]}
 
 
+def fwd_rows(out, gen):
+    for n, t, dh, rate in FWD_SHAPES:
+        q, k, v = (torch.randn(n, t, dh, generator=gen, device="cuda") for _ in range(3))
+        seed = torch.tensor([12345], device="cuda")
+
+        def call():
+            return flash_causal_attention(q, k, v, rate, seed)
+
+        res = call()
+        out[f"flash_fwd {n}x{t}x{dh} rate {rate}"] = {
+            "device_ms": cs.queued_ms(call), "call_ms": cs.cuda_ms(call),
+            "checksum": [float(x.double().abs().sum()) for x in res]}
+
+
+def rowadam_rows(out):
+    """Device and call time of one call's row updates, and a checksum of the
+    tables after one call on fresh copies."""
+    bc, lr = rowadam.bias_corrections(3), 0.05
+    for name, shapes in ROWADAM_CASES:
+        tables, ids, grads = [], [], []
+        for i, (n_rows, n_ids, d, zipf) in enumerate(shapes):
+            table, m, v, idx, g = cs.rowadam_inputs(n_rows, n_ids, d, i, "cuda", zipf)
+            ids_s, g_d = _segment_dedup(idx, g)
+            tables.append((table, m, v))
+            ids.append(ids_s)
+            grads.append(g_d)
+        fresh = [tuple(x.clone() for x in t) for t in tables]
+        if hasattr(rowadam, "RowAdamTables"):
+            group = rowadam.RowAdamTables(tables)
+            check = rowadam.RowAdamTables(fresh)
+
+            def call():
+                group(ids, grads, bc, lr)
+
+            def once():
+                check(ids, grads, bc, lr)
+        else:
+            def call():
+                for t, i, g in zip(tables, ids, grads):
+                    rowadam.fused_rowadam(*t, i, g, bc, lr)
+
+            def once():
+                for t, i, g in zip(fresh, ids, grads):
+                    rowadam.fused_rowadam(*t, i, g, bc, lr)
+
+        launches = rowadam.fused_rowadam.launches
+        once()
+        out[f"rowadam {name}"] = {
+            "launches": rowadam.fused_rowadam.launches - launches,
+            "device_ms": cs.queued_ms(call), "call_ms": cs.cuda_ms(call),
+            "checksum": [float(x.double().abs().sum()) for t in fresh for x in t]}
+
+
+def epoch_rows(out):
+    """Per-epoch rates of MF lazy-Adam and SASRec training (see the module
+    docstring)."""
+    import tempfile
+
+    from beta_recsys_tpu_torch.core.train_engine import TrainEngine
+    from beta_recsys_tpu_torch.data.sequential_data import SequentialData
+    from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+    from beta_recsys_tpu_torch.models import build_model
+
+    def rates(cfg, data, epochs, per_epoch):
+        model = build_model(cfg.model, data.n_users, data.n_items, device="cuda")
+        engine = TrainEngine(cfg, torch.device("cuda")).build(model, data)
+        fn, got = engine.epoch_fn, []
+        for _ in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(fn.run(engine.generator))
+            got.append(per_epoch(fn) / (time.perf_counter() - t0))
+        return got, fn.num_batches
+
+    with tempfile.TemporaryDirectory() as root:
+        launches = rowadam.fused_rowadam.launches
+        mf, steps = rates(cs.mf_config(0, root, sparse_optim=True, row_update="fused"), cs.mf_split(), 6,
+                          lambda fn: fn.padded_size)
+        out["mf-sparse epochs"] = {"examples_per_s": mf,
+                                   "fused_rowadam_launches_per_step": (rowadam.fused_rowadam.launches - launches)
+                                   / (6 * steps)}
+        seq = SequentialData(load_split_data(cs.SPLIT, n_test=1))
+        sas, _ = rates(cs.sasrec_config(0, root), seq, 20, lambda fn: fn.num_batches * fn.batch_size)
+        out["sasrec-train epochs"] = {"sequences_per_s": sas}
+
+
 def ring_rows(out, gen, devices, key):
     for c in RING_CS:
         blocks = [torch.randn(c, 64, generator=gen, device="cuda").to(d) for d in devices]
@@ -115,11 +224,17 @@ def ring_rows(out, gen, devices, key):
 
 
 def main():
-    groups = set(sys.argv[3:]) or {"flash", "ring", "across"}
+    groups = set(sys.argv[3:]) or {"fwd", "flash", "rowadam", "ring", "across"}
     out = {"label": sys.argv[2], "card": cs.nvidia_smi_line()}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "fwd" in groups:
+        fwd_rows(out, gen)
     if "flash" in groups:
         flash_rows(out, gen)
+    if "rowadam" in groups:
+        rowadam_rows(out)
+    if "epochs" in set(sys.argv[3:]):
+        epoch_rows(out)
     if "ring" in groups:
         ring_rows(out, gen, ["cuda:0"] * 4, "loopback")
     if "across" in groups and torch.cuda.device_count() >= 4:

@@ -1,6 +1,7 @@
 """On a card: the flash-attention forward and backward CUDA kernels against
-their plain versions (dropout masks bit for bit), two runs giving the same
-bits, and head dims the kernels do not take raising. Imports nothing of
+their plain versions (dropout masks bit for bit), saturated rows (lse past
+1e7) through both kernels, two runs giving the same bits, and head dims the
+kernels do not take raising. Imports nothing of
 JAX, so it runs on the card's machine:
 
     python3 -m pytest --noconftest tests/test_torch_flash_attention_cuda.py -q
@@ -121,6 +122,83 @@ def test_cuda_kernels_repeat_bit_for_bit(rate):
         again = flash_causal_attention(q, k, v, rate, seed)
         grads = flash_causal_attention_bwd(q, k, v, again[1], do, rate, seed)
         assert all(torch.equal(a, b) for a, b in zip((*first, *first_grads), (*again, *grads)))
+
+
+def _dominant_inputs(n, t, dh, dtype, seed, gain=1e7):
+    """q, k, v, dout where one key dominates every row: q_i = gain * k_j for
+    a random visible key j <= i, so row i's top score stands above the rest
+    by ~gain * |k_j|^2 and P is one-hot, with lse past 1e7 (the shipped
+    config's lr 0.5 reaches such rows within a few steps). Asserts the gap:
+    at least 1,000 in units of the scaled score, so every other P is an
+    exact 0 in float32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k, v, do = (torch.randn(n, t, dh, generator=gen, device="cuda") for _ in range(3))
+    top = (torch.rand(n, t, generator=gen, device="cuda") * torch.arange(1, t + 1, device="cuda")).long()
+    q = gain * torch.gather(k, 1, top[..., None].expand(-1, -1, dh))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) / dh**0.5
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool, device="cuda").tril(), -float("inf"))
+    if t > 1:
+        two = s[:, 1:].topk(2, dim=-1).values
+        assert float((two[..., 0] - two[..., 1]).min()) > 1e3
+    return q, k, v, do
+
+
+def _kernel_and_plain(q, k, v, do, rate, seed):
+    """(out, lse, dq, dk, dv) through the forward and backward kernels, and
+    (out, dq, dk, dv) through autograd of the plain forward."""
+    out, lse = flash_causal_attention(q, k, v, rate, seed)
+    grads = flash_causal_attention_bwd(q, k, v, lse, do, rate, seed)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref, _ = flash_causal_attention_reference(*leaves, rate, seed)
+    want = torch.autograd.grad(ref, leaves, do)
+    torch.cuda.synchronize()
+    return (out, lse, *grads), (ref.detach(), *want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t,dh", [(77, 16), (100, 32), (200, 64)])
+def test_cuda_saturated_rows_match_plain_backward(t, dh, rate, dtype):
+    """Rows with lse past 1e7: the forward kernel followed by the backward
+    kernel gives finite gradients within TOL of autograd through the plain
+    forward. A backward whose P of a row's top key is not exactly 1 (its
+    scores or lse rounded otherwise than the forward's) leaves gradients of
+    the size of the logits here."""
+    _cuda()
+    q, k, v, do = _dominant_inputs(4, t, dh, dtype, seed=t)
+    seed = torch.tensor([4242 + t], device="cuda")
+    (out, lse, *grads), (ref, *want) = _kernel_and_plain(q, k, v, do, rate, seed)
+    assert float(lse.min()) > 1e7
+    _assert_close(out, ref, dtype, "out")
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        _assert_close(got, w, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t,dh", [(100, 32), (200, 64)])
+def test_cuda_one_dominant_key_gives_no_score_gradient(t, dh, rate):
+    """Where one key dominates a row (lse past 1e7), P is one-hot, dS =
+    P (dP - D) vanishes and so do dq and dk: exactly through the plain
+    versions. Through the kernels dk is exactly 0 and dq is within the
+    rounding of D k (the backward forms dq = A - D B in one fmaf). That
+    holds only when the backward's P of the top key, recomputed from the
+    forward's lse, is exactly 1: the forward must give each score the bits
+    the backward recomputes. A forward that summed q.k in another order
+    would be off by an ulp of lse (1 or more past 1e7), P of the top key
+    e^-1 or so, and dq of the size of D k."""
+    _cuda()
+    q, k, v, do = _dominant_inputs(4, t, dh, torch.float32, seed=7 * t)
+    seed = torch.tensor([777], device="cuda")
+    (_, lse, dq, dk, _), (_, want_dq, want_dk, _) = _kernel_and_plain(q, k, v, do, rate, seed)
+    assert float(lse.min()) > 1e7
+    assert not want_dq.any() and not want_dk.any()
+    assert not dk.any()
+    d_max = float((do.abs().amax() * v.abs().amax() * dh) / (1 - rate))  # a bound on |D|
+    rounding = 2.0**-22 * d_max * float(k.abs().max()) / dh**0.5
+    assert float(dq.abs().max()) <= rounding, (float(dq.abs().max()), rounding)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,13 @@
-"""The lazy-Adam row update: the port's plain ``fused_rowadam``, its
-``_segment_dedup`` and ``sparse_adam_row_update`` against the JAX package's
-(the Pallas kernel in interpret mode on the CPU) and the wrapper's dispatch.
+"""The lazy-Adam row update: the port's plain ``fused_rowadam`` (one table
+and grouped), its ``_segment_dedup`` and ``sparse_adam_row_update`` against
+the JAX package's (the Pallas kernel in interpret mode on the CPU), the
+wrapper's dispatch and checks, and the trainer's one grouped call a step.
 The card's tests are in ``tests/test_torch_rowadam_cuda.py``."""
+
+import ctypes
+import re
+import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,11 +17,15 @@ import torch
 from beta_recsys_tpu.core.sparse_optim import _segment_dedup as jax_segment_dedup
 from beta_recsys_tpu.core.sparse_optim import sparse_adam_row_update as jax_sparse_adam_row_update
 from beta_recsys_tpu.ops.pallas.rowadam import fused_rowadam as jax_fused_rowadam
-from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup, sparse_adam_row_update
+from beta_recsys_tpu_torch.core.sparse_optim import SparseEpochTrainer, _segment_dedup, sparse_adam_row_update
+from beta_recsys_tpu_torch.models.mf import MF
+from beta_recsys_tpu_torch.ops.kernels import rowadam
 from beta_recsys_tpu_torch.ops.kernels.rowadam import (
+    RowAdamTables,
     bias_corrections,
     fused_rowadam,
     fused_rowadam_reference,
+    fused_rowadam_tables,
 )
 
 # As tests/test_rowadam_kernel.py holds the JAX kernel: float32 Adam
@@ -137,3 +147,93 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"\(L, d\)"):
         fused_rowadam(table, m, v, ids[:5], rows, bc, 0.1)
 
+
+
+@pytest.mark.parametrize("step", [1, 9])
+def test_grouped_plain_version_matches_pallas_kernel_and_xla_update_per_table(step):
+    """One grouped call over three tables of other shapes is the JAX kernel
+    (and the JAX XLA update) of each table on its own."""
+    cases = [_case(64, 32, 16, seed=11), _case(90, 40, 8, seed=12), _case(40, 24, 5, seed=13)]
+    want_kernel, want_xla, tables, ids, grads = [], [], [], [], []
+    for table, m, v, i, rows in cases:
+        ids_s, rows_d = jax_segment_dedup(jnp.asarray(i), jnp.asarray(rows))
+        want_kernel.append(jax_fused_rowadam(
+            jnp.asarray(table), jnp.asarray(m), jnp.asarray(v), ids_s, rows_d, _jax_bc(step), 0.05))
+        want_xla.append(jax_sparse_adam_row_update(
+            jnp.asarray(table), jnp.asarray(m), jnp.asarray(v), jnp.asarray(i), jnp.asarray(rows), 0.05,
+            jnp.float32(step)))
+        tables.append(_t(table, m, v))
+        got_ids, got_rows = _t(np.asarray(ids_s).astype(np.int64), rows_d)
+        ids.append(got_ids)
+        grads.append(got_rows)
+    got = fused_rowadam_tables(tables, ids, grads, bias_corrections(step), 0.05)
+    assert got == tables  # updated in place
+    for triple, wk, wx in zip(got, want_kernel, want_xla):
+        _assert_close(triple, wk)
+        _assert_close(triple, wx)
+
+
+def test_group_rejects_tables_that_share_memory():
+    """The kernel updates every table of a group at once, so no two of the
+    group's tables and moments may overlap."""
+    table, m, v, _, _ = _t(*_case(20, 10, 4, seed=7))
+    other = [x.clone() for x in (table, m, v)]
+    for group in ([(table, m, v), (table, *other[1:])],       # one table twice
+                  [(table, m, m)],                           # m is v
+                  [(table[:12], m[:12], v[:12]), (table[8:], *[x[8:] for x in other[1:]])]):  # overlapping views
+        with pytest.raises(ValueError, match="share memory"):
+            RowAdamTables(group)
+    RowAdamTables([(table[:8], m[:8], v[:8]), (table[8:], m[8:], v[8:])])  # adjacent views are fine
+
+
+def test_group_checks_its_calls():
+    (table, m, v, ids, rows), (t2, m2, v2, _, _) = _t(*_case(20, 10, 4, seed=8)), _t(*_case(30, 6, 4, seed=9))
+    group = RowAdamTables([(table, m, v), (t2, m2, v2)])
+    ids = ids.long()
+    with pytest.raises(ValueError, match="one ids and one grads a table"):
+        group([ids], [rows], bias_corrections(1), 0.1)
+    with pytest.raises(TypeError, match="int64"):
+        group([ids, ids.int()], [rows, rows], bias_corrections(1), 0.1)
+    with pytest.raises(ValueError, match="tables, not 9"):
+        RowAdamTables([tuple(x.clone() for x in (table, m, v)) for _ in range(9)])
+    with pytest.raises(ValueError, match="one"):
+        RowAdamTables([(table, m, v[:5])])
+
+
+def test_call_struct_has_the_c_layout():
+    """``_RowAdamCall`` mirrors ``RowAdamCall`` of csrc/rowadam.cu field for
+    field (and ``_RowAdamTable`` its ``RowAdamTable``): the same names in the
+    same order, at the C layout's offsets on a 64-bit host, so the C call
+    reads what the wrapper wrote."""
+    source = (Path(rowadam.__file__).parents[2] / "csrc" / "rowadam.cu").read_text()
+    for struct, ours in (("RowAdamTable", rowadam._RowAdamTable), ("RowAdamCall", rowadam._RowAdamCall)):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", source, re.S).group(1)
+        assert re.findall(r"(\w+)(?:\[kMaxTables\])?;", body) == [name for name, _ in ours._fields_]
+    assert re.search(r"constexpr int kMaxTables = (\d+);", source).group(1) == str(rowadam.MAX_TABLES)
+    table = rowadam._RowAdamTable
+    assert (table.ids.offset, table.n_rows.offset, table.n_ids.offset, table.d.offset) == (24, 40, 48, 52)
+    assert ctypes.sizeof(table) == 56
+    call = rowadam._RowAdamCall
+    assert (call.count.offset, call.lr.offset, call.bc2.offset, ctypes.sizeof(call)) == (448, 452, 480, 488)
+
+
+def test_trainer_fused_route_makes_one_grouped_call_a_step():
+    """MF's two 2-D tables (user_emb, item_emb) update in one grouped call a
+    step, checked once when the trainer is built; the 1-D bias tables take
+    ``sparse_adam_row_update``. On the CPU the call takes the plain version
+    and launches nothing."""
+    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cpu")
+    arrays = types.SimpleNamespace(users=np.arange(10), items=np.arange(10))
+    trainer = SparseEpochTrainer(model, arrays, 4, None, 0.05, None, row_update="fused")
+    trainer.dense_optimizer = torch.optim.Adam(list(trainer.dense.values()), lr=0.05)
+    assert trainer.fused == ["user_emb", "item_emb"]
+    assert [t[0].data_ptr() for t in trainer.row_adam.tables] == [
+        model.user_emb.data_ptr(), model.item_emb.data_ptr()]
+    gen = torch.Generator().manual_seed(0)
+    calls, launches = fused_rowadam_tables.calls, fused_rowadam.launches
+    before = model.item_emb.detach().clone()
+    for _ in range(3):
+        users, pos, neg = (torch.randint(0, n, (4,), generator=gen) for n in (10, 12, 12))
+        assert torch.isfinite(trainer.step(users, pos, neg))
+    assert fused_rowadam_tables.calls == calls + 3 and fused_rowadam.launches == launches
+    assert not torch.equal(model.item_emb.detach(), before)

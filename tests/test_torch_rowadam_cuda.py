@@ -1,5 +1,6 @@
 """On a card: the ``fused_rowadam`` CUDA kernel against its plain version,
-and the segment dedup repeating bit for bit. Imports nothing of JAX, so it
+for one table and for a group of tables in one launch, ids outside the
+table left unwritten, and the segment dedup repeating bit for bit. Imports nothing of JAX, so it
 runs on the card's machine:
 
     python3 -m pytest --noconftest tests/test_torch_rowadam_cuda.py -q
@@ -20,10 +21,12 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (
     bias_corrections,
     fused_rowadam,
     fused_rowadam_reference,
+    fused_rowadam_tables,
+    fused_rowadam_tables_reference,
 )
 
 # As tests/test_rowadam_kernel.py holds the JAX kernel; the card's kernel
-# contracts the same float32 arithmetic into FMAs.
+# rounds the same float32 operations on their own, as the plain version does.
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -56,6 +59,55 @@ def test_cuda_kernel_matches_plain_version(n, b, d):
     for g, w, orig in zip(got, want, (table, m, v)):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
         assert torch.equal(g[untouched], orig[untouched])
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_kernel_matches_per_table_plain_versions():
+    """One launch over MF's step (943 x 64 with L 400, 1682 x 64 with L 800)
+    and tables of other widths (d 65 and d 1 take one float a lane, d 8 two
+    float4 lanes a row): each table as its own plain version leaves it, and
+    every untouched row bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    shapes = [(943, 400, 64), (1682, 800, 64), (300, 64, 65), (50, 40, 1), (120, 90, 8)]
+    tables, ids, grads = [], [], []
+    for i, (n, b, d) in enumerate(shapes):
+        table, m, v, idx, rows = _case(n, b, d, seed=10 + i)
+        rows[::7] = 0.0
+        ids_s, rows_d = _segment_dedup(idx, rows)
+        tables.append((table, m, v))
+        ids.append(ids_s)
+        grads.append(rows_d)
+    bc = bias_corrections(5)
+    want = fused_rowadam_tables_reference([tuple(x.clone() for x in t) for t in tables], ids, grads, bc, 0.05)
+    got = [tuple(x.clone() for x in t) for t in tables]
+    before = fused_rowadam.launches
+    fused_rowadam_tables(got, ids, grads, bc, 0.05)
+    torch.cuda.synchronize()
+    assert fused_rowadam.launches == before + 1
+    for (n, _, _), g_t, w_t, orig, i, g in zip(shapes, got, want, tables, ids, grads):
+        untouched = torch.ones(n, dtype=torch.bool, device="cuda")
+        untouched[i[(g != 0).any(dim=1)]] = False
+        for x, w, o in zip(g_t, w_t, orig):
+            torch.testing.assert_close(x, w, rtol=RTOL, atol=ATOL)
+            assert torch.equal(x[untouched], o[untouched])
+
+
+@pytest.mark.cuda
+def test_cuda_ids_outside_the_table_are_not_written():
+    """A row with a gradient and an id outside [0, n_rows) writes nothing;
+    the other rows update as the plain version updates them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    table, m, v, _, rows = _case(100, 6, 64, seed=3)
+    ids = torch.tensor([-1, 4, 9, 100, 57, 1 << 40], device="cuda")
+    valid = (ids >= 0) & (ids < 100)
+    want = fused_rowadam_reference(table.clone(), m.clone(), v.clone(), ids.clamp(0, 99),
+                                   torch.where(valid[:, None], rows, 0.0), bias_corrections(2), 0.05)
+    got = fused_rowadam(table.clone(), m.clone(), v.clone(), ids, rows, bias_corrections(2), 0.05)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
