@@ -11,33 +11,57 @@ nothing is transposed; ``item_emb`` keeps its padding row 0. The
 
 ``mf_params_from_jax`` does the same for MF (``beta_recsys_tpu/models/mf.py``:
 ``user_emb``, ``item_emb``, ``user_bias``, ``item_bias``, 0-d
-``global_bias``), and ``params_to_jax`` is the inverse of both: the tree the
-JAX package's ``from_state_dict`` restores, as float32 numpy arrays.
+``global_bias``), ``gmf_params_from_jax``, ``mlp_params_from_jax`` and
+``ncf_params_from_jax`` for GMF, MLP and NeuMF (their ``layers`` list comes
+as a list or as a dict keyed "0", "1", ..., like SASRec's ``blocks``), and
+``params_to_jax`` is the inverse of all of them: the tree the JAX package's
+``from_state_dict`` restores, as float32 numpy arrays. ``flatten_params``
+also takes a tree whose leaves are tensors (a ``state_dict`` nested by
+``nest_dotted``), on any device.
 """
 
 import numpy as np
 import torch
 
 
-def _flatten(tree, prefix=""):
+def flatten_params(tree, prefix=""):
+    """{dotted name: float32 CPU tensor} of a params tree of dicts and lists
+    whose leaves are arrays or tensors; the values' bits are kept."""
     if isinstance(tree, (list, tuple)):
         tree = {str(i): v for i, v in enumerate(tree)}
     if isinstance(tree, dict):
         out = {}
         for key, value in tree.items():
-            out.update(_flatten(value, f"{prefix}{key}."))
+            out.update(flatten_params(value, f"{prefix}{key}."))
         return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix[:-1]: tree.detach().to("cpu", torch.float32)}
     return {prefix[:-1]: torch.from_numpy(np.array(tree, dtype=np.float32))}
 
 
 def sasrec_params_from_jax(params):
     """{dotted name: float32 tensor} for ``SASRec.load_state_dict``."""
-    return _flatten(params)
+    return flatten_params(params)
 
 
 def mf_params_from_jax(params):
     """{name: float32 tensor} for ``MF.load_state_dict``."""
-    return _flatten(params)
+    return flatten_params(params)
+
+
+def gmf_params_from_jax(params):
+    """{name: float32 tensor} for ``GMF.load_state_dict``."""
+    return flatten_params(params)
+
+
+def mlp_params_from_jax(params):
+    """{dotted name: float32 tensor} for ``MLP.load_state_dict``."""
+    return flatten_params(params)
+
+
+def ncf_params_from_jax(params):
+    """{dotted name: float32 tensor} for ``NeuMF.load_state_dict``."""
+    return flatten_params(params)
 
 
 def nest_dotted(flat):

@@ -25,7 +25,7 @@ class RankingEvaluator:
         self.model = model
         self.metrics = tuple(metrics)
         self.ks = tuple(int(k) for k in ks)
-        device = model.item_emb.device
+        device = model.device
         self.users = torch.as_tensor(candidates.users, dtype=torch.long, device=device)
         self.items = torch.as_tensor(candidates.items, dtype=torch.long, device=device)
         self.relevance = torch.as_tensor(candidates.relevance, device=device)

@@ -1,15 +1,15 @@
 """Training engine: epoch trainers, early stop and checkpoints.
 
 Counterpart of ``beta_recsys_tpu/core/train_engine.py`` on one device for the
-pairwise (BPR) and sequence (SASRec) batch kinds: ``make_optimizer``,
-``make_negative_sampler``, ``_padded_order``, the dense pairwise trainer
-(``make_epoch_fn``), the sequence trainer (``SequenceEpochTrainer``, the
-counterpart of ``make_sequence_epoch_fn``) and ``TrainEngine`` (``build``,
-``train``, ``save_checkpoint``). Models with a row protocol and
-``"sparse_optim": true`` train through the lazy-Adam trainer of
-``core/sparse_optim.py``; with ``system.mesh`` through its row-sharded
-counterpart on a device mesh (``ShardedSparseEpochTrainer``), routed as the
-JAX package routes it.
+pairwise (BPR), pointwise (BCE) and sequence (SASRec) batch kinds:
+``make_optimizer``, ``make_negative_sampler``, ``_padded_order``, the dense
+pairwise and pointwise trainers (``make_epoch_fn``), the sequence trainer
+(``SequenceEpochTrainer``, the counterpart of ``make_sequence_epoch_fn``)
+and ``TrainEngine`` (``build``, ``train``, ``save_checkpoint``). Models
+with a row protocol and ``"sparse_optim": true`` train through the
+lazy-Adam trainer of ``core/sparse_optim.py``; with ``system.mesh`` through
+its row-sharded counterpart on a device mesh (``ShardedSparseEpochTrainer``),
+routed as the JAX package routes it.
 
 As in the JAX package, an epoch's batches are formed once before its step
 loop (the row draw or permutation, and the negatives), drawn on the device
@@ -157,15 +157,75 @@ class DenseEpochTrainer(EpochBatches):
         return loss.detach()
 
 
-def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler):
-    """The dense whole-epoch trainer for the model's pairwise batches."""
+class PointwiseEpochTrainer(DenseEpochTrainer):
+    """Dense trainer on pointwise (BCE) batches, the ``kind == "pointwise"``
+    branch of the JAX ``make_epoch_fn``: each step trains on its B positives
+    labelled with their binarized train ratings and on ``num_neg`` sampled
+    negatives per positive, labelled 0, for the positive's user
+    (``_pointwise_prepare``). Each step's dropout, if the model has any, is
+    drawn from the epoch's generator. The table lookups' backward sorts its
+    ids and sums each row's gradients in that order (no atomics), so a seed
+    repeats bit for bit on the card.
+
+    ``run(generator)`` forms the epoch's batches and trains on them;
+    ``run_batches(users, items, neg, labels, generator=None)`` trains on
+    given (num_batches, B) users, items and labels and (num_batches,
+    B * num_neg) negatives, the negatives of each positive together. Both
+    return the mean batch loss as a 0-d device tensor."""
+
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, num_neg):
+        super().__init__(model, optimizer, train_arrays, batch_size, neg_sampler)
+        self.ratings = torch.as_tensor(train_arrays.ratings, dtype=torch.float32, device=self.device)
+        self.num_neg = int(num_neg)
+
+    def form(self, generator):
+        """(users, items, neg, labels): (num_batches, B), (num_batches, B),
+        (num_batches, B * num_neg) and (num_batches, B), on the device."""
+        perm = torch.randperm(self.n, generator=generator, device=self.device)
+        order = _padded_order(perm, self.padded_size)
+        users, items, labels = self.users[order], self.items[order], self.ratings[order]
+        u_rep = users.repeat_interleave(self.num_neg)
+        neg = self.neg_sampler(generator, u_rep, (self.padded_size * self.num_neg,))
+        shape = (self.num_batches, self.batch_size)
+        return users.view(shape), items.view(shape), neg.view(self.num_batches, -1), labels.view(shape)
+
+    def run(self, generator):
+        return self.run_batches(*self.form(generator), generator=generator)
+
+    def run_batches(self, users, items, neg, labels, generator=None):
+        users, items, neg = (torch.as_tensor(x, dtype=torch.long, device=self.device) for x in (users, items, neg))
+        labels = torch.as_tensor(labels, dtype=torch.float32, device=self.device)
+        total = torch.zeros((), device=self.device)
+        for b in range(users.shape[0]):
+            total += self.step(users[b], items[b], neg[b], labels[b], generator)
+        return total / users.shape[0]
+
+    def step(self, users, items, neg, labels, generator):
+        num_neg = neg.shape[0] // users.shape[0]
+        batch = {
+            "users": torch.cat([users, users.repeat_interleave(num_neg)]),
+            "items": torch.cat([items, neg]),
+            "labels": torch.cat([labels, labels.new_zeros(neg.shape)]),
+        }
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss(batch, generator)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+
+def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1):
+    """The dense whole-epoch trainer for the model's pairwise or pointwise
+    (``num_neg`` negatives a positive) batches."""
     kind = model.batch_kind
-    if kind != "pairwise":
-        raise NotImplementedError(
-            f"batch kind {kind!r}: the port trains pairwise (BPR) and sequence batches so far; "
-            "pointwise (BCE) and multineg batches are ROADMAP.md, section 1 item 2 (the rest of MF training)"
-        )
-    return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+    if kind == "pairwise":
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+    if kind == "pointwise":
+        return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg)
+    raise NotImplementedError(
+        f"batch kind {kind!r}: the port trains pairwise (BPR), pointwise (BCE) and sequence batches so far; "
+        "multineg batches are ROADMAP.md, section 1 item 2 (the rest of MF training)"
+    )
 
 
 class SequenceEpochTrainer:
@@ -330,7 +390,9 @@ class TrainEngine:
             )
         else:
             self.optimizer = make_optimizer(model_cfg, model.parameters())
-            self.epoch_fn = make_epoch_fn(model, self.optimizer, data.train_arrays(), batch_size, neg_sampler)
+            num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))
+            self.epoch_fn = make_epoch_fn(model, self.optimizer, data.train_arrays(), batch_size, neg_sampler,
+                                          num_neg)
         metrics = tuple(sys_cfg.get("metrics", ["ndcg", "precision", "recall", "map"]))
         ks = tuple(sys_cfg.get("k", [5, 10, 20]))
         self.valid_evaluator = (

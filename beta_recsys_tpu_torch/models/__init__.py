@@ -1,7 +1,11 @@
+from .gmf import GMF
 from .mf import MF
+from .mlp import MLP
+from .ncf import NeuMF
 from .sasrec import SASRec
 
-MODELS = {"MF": MF, "SASRec": SASRec}
+# The JAX registry's names for the ported models (beta_recsys_tpu/models/__init__.py).
+MODELS = {"MF": MF, "GMF": GMF, "MLP": MLP, "NCF": NeuMF, "NeuMF": NeuMF, "ncf": NeuMF, "SASRec": SASRec}
 
 
 def build_model(config, n_users, n_items, artifacts=None, device=None):

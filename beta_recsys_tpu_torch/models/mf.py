@@ -76,8 +76,9 @@ class MF(RecModel):
             self.item_bias[items], batch_size=users.shape[0],
         )
 
-    def loss(self, batch):
-        """The batch's training loss (the dense trainer differentiates it)."""
+    def loss(self, batch, generator=None):
+        """The batch's training loss (the dense trainers differentiate it; MF
+        draws no dropout, so ``generator`` is unused)."""
         if self.loss_type == "bpr":
             users, pos, neg = batch["users"], batch["pos_items"], batch["neg_items"]
             loss = bpr_loss(self.score_pairs(users, pos), self.score_pairs(users, neg))

@@ -1,10 +1,16 @@
 """User-facing recommender wrappers, one per model family.
 
-Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF and SASRec
-are ported so far.
+Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
+NeuMF and SASRec are ported so far.
 """
 
-from ..convert import mf_params_from_jax, sasrec_params_from_jax
+from ..convert import (
+    gmf_params_from_jax,
+    mf_params_from_jax,
+    mlp_params_from_jax,
+    ncf_params_from_jax,
+    sasrec_params_from_jax,
+)
 from ..core.recommender import Recommender
 from ..data.sequential_data import SequentialData
 
@@ -14,6 +20,37 @@ class MatrixFactorization(Recommender):
 
     model_name = "MF"
     params_from_jax = staticmethod(mf_params_from_jax)
+
+
+class GMFRecommender(Recommender):
+    """GMF with BCE on sampled negatives."""
+
+    model_name = "GMF"
+    params_from_jax = staticmethod(gmf_params_from_jax)
+
+
+class MLPRecommender(Recommender):
+    """The MLP tower with BCE on sampled negatives."""
+
+    model_name = "MLP"
+    params_from_jax = staticmethod(mlp_params_from_jax)
+
+
+class NeuCF(Recommender):
+    """NeuMF, optionally warm-started from pretrained GMF and MLP params:
+    the JAX package's trees (a checkpoint's ``raw["params"]``) or the
+    port's (``nest_dotted(rec.model.state_dict())``). They replace the
+    initial GMF tables, and the MLP tables and ``layers``, bit for bit."""
+
+    model_name = "NCF"
+    params_from_jax = staticmethod(ncf_params_from_jax)
+
+    def __init__(self, config, gmf_params=None, mlp_params=None, device=None):
+        super().__init__(config, device)
+        self._pretrained = {"gmf_params": gmf_params, "mlp_params": mlp_params}
+
+    def build_artifacts(self, data):
+        return {k: v for k, v in self._pretrained.items() if v is not None}
 
 
 class SASRec(Recommender):

@@ -52,7 +52,20 @@ Phases, each printed with the seconds elapsed:
      batches of 16,384: time a step and the ring's share of device time;
  16. on 4 cards: the slice trained to early stop on cuda:0-3, inside the JAX
      package's lazy-Adam band;
- 17. a JSON line of every kernel with its launches on each path, counted
+ 17. serve the JAX-trained GMF, MLP and NCF checkpoints: load -> test() ->
+     predict() -> recommend(k=10); test() reproduces the JAX package's
+     metrics to 1e-4, the top-10 lists match the same model served by the
+     port on the CPU; users/s of test() and recommend();
+ 18. train GMF, MLP and NCF at their shipped configs (BCE on 4 sampled
+     negatives a positive, batch 400, Adam at lr 1e-3) on the structured
+     split through XRecommender(cfg).train(data), seed 0, to early stop:
+     best valid and test ndcg@10 inside the JAX package's ten-seed bands,
+     NCF trained twice bit for bit; examples/s and one profiled epoch each;
+ 19. NCF warm-started from phase 18's MLP and a GMF trained as in phase 18
+     at NCF's width (emb 8; the shipped GMF is 64 wide): it starts from
+     their tables and layers bit for bit; its metrics are printed. Phases
+     17-19 launch none of the kernels (every count read 0 around each);
+ 20. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
@@ -77,7 +90,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from beta_recsys_tpu_torch.config import load_config  # noqa: E402
-from beta_recsys_tpu_torch.convert import sasrec_params_from_jax  # noqa: E402
+from beta_recsys_tpu_torch.convert import nest_dotted, ncf_params_from_jax, sasrec_params_from_jax  # noqa: E402
 from beta_recsys_tpu_torch.core.checkpoint import load_raw_checkpoint  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
     ShardedSparseEpochTrainer,
@@ -110,7 +123,14 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
     fused_rowadam_reference,
 )
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
-from beta_recsys_tpu_torch.recommenders import MatrixFactorization, SASRec  # noqa: E402
+from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
+from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
+    GMFRecommender,
+    MatrixFactorization,
+    MLPRecommender,
+    NeuCF,
+    SASRec,
+)
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
     DEFAULT_ITEM_COL,
     DEFAULT_PREDICTION_COL,
@@ -210,6 +230,32 @@ MESH_CAPACITY_FACTOR = 4.0
 # moments). Each epoch's loss to 1e-5 relative.
 MESH_TOL = (1e-4, 1e-3, 1e-2)
 PROFILED_STEPS = 10  # sharded steps under torch.profiler
+# The NCF family: each model's recommender, shipped config and JAX-trained
+# seed-0 checkpoint.
+NCF_FAMILY = {
+    "GMF": (GMFRecommender, "configs/gmf_default.json", "GMF_default_20260821_134755_yybcvt"),
+    "MLP": (MLPRecommender, "configs/mlp_default.json", "MLP_default_20260821_134859_yybcvt"),
+    "NCF": (NeuCF, "configs/ncf_default.json", "NCF_default_20260821_134325_yybcvt"),
+}
+# The JAX package's XRecommender(...).load(checkpoint, data).test() on the
+# structured split (tests/test_torch_serving_ncf.py holds the same values).
+EXPECTED_NCF_METRICS = {
+    "GMF": {"ndcg@10": 0.118532, "recall@10": 0.316013, "precision@10": 0.031601, "map@10": 0.061091},
+    "MLP": {"ndcg@10": 0.135927, "recall@10": 0.335101, "precision@10": 0.033510, "map@10": 0.078096},
+    "NCF": {"ndcg@10": 0.126206, "recall@10": 0.340403, "precision@10": 0.034040, "map@10": 0.064365},
+}
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's training at each shipped config on the structured split:
+# `JAX_PLATFORMS=cpu python port_tools/jax_ncf_band.py`. A port run must land
+# within mean +- 3 std.
+NCF_BANDS = {
+    "GMF": {"valid": (0.14416029453277587, 0.0023161275649824075),
+            "test": (0.12286070138216018, 0.002249093758183809)},
+    "MLP": {"valid": (0.15576801598072051, 0.007593574319172472),
+            "test": (0.13140337765216828, 0.0032208028916154204)},
+    "NCF": {"valid": (0.15180849134922028, 0.004850082781757105),
+            "test": (0.12909825518727303, 0.005508611261360261)},
+}
 
 T0 = time.perf_counter()
 
@@ -1462,6 +1508,179 @@ def ring_entry(rows, launches):
     }
 
 
+# -- the NCF family (phases 17-19) ------------------------------------------------
+
+
+def zero_kernel_counts():
+    flash_causal_attention.launches = flash_causal_attention_bwd.launches = 0
+    fused_rowadam.launches = ring_allgather.launches = 0
+
+
+def check_no_kernel(path):
+    """The NCF family's paths run no hand-written kernel: the JAX package
+    trains and serves them through XLA code alone."""
+    torch.cuda.synchronize()
+    counts = {"flash_causal_attention_fwd": flash_causal_attention.launches,
+              "flash_causal_attention_bwd": flash_causal_attention_bwd.launches,
+              "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches}
+    if any(counts.values()):
+        fail(f"{path}: the path launched kernels {counts}, expected none")
+
+
+def ncf_config(name, seed, root_dir):
+    """The model's shipped config on the structured synthetic split, one
+    evaluation copy, as the JAX package's parity runs train it."""
+    return load_config(os.path.join(REPO, NCF_FAMILY[name][1])).replace(
+        system={"root_dir": root_dir, "seed": seed},
+        dataset={"dataset": "synthetic_structured", "n_test": 1},
+    )
+
+
+def serve_ncf_checkpoints(root_dir):
+    """Phase 17: each checkpoint's load, test(), predict() and recommend(),
+    with no kernel launched."""
+    data = mf_split()
+    for name, (cls, _, checkpoint) in NCF_FAMILY.items():
+        path = os.path.join(REPO, "parity_runs/checkpoints", checkpoint)
+        phase = f"{name.lower()}-serve"
+        cfg = load_config(path).replace(system={"root_dir": root_dir})
+        zero_kernel_counts()
+        rec = cls(cfg).load(path, data)
+        res = rec.test()
+        for key, want in EXPECTED_NCF_METRICS[name].items():
+            if abs(res[key] - want) > METRIC_TOL:
+                fail(f"{name} checkpoint test() {key} = {res[key]:.6f}, expected {want} +- {METRIC_TOL}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.test()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        pairs = {c: data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+        scores = rec.predict(pairs)
+        if scores.shape != (300,) or not np.isfinite(scores).all() or (scores < 0).any() or (scores > 1).any():
+            fail(f"{phase}: predict() gave {scores.shape} scores outside [0, 1] or non-finite")
+        k = 10
+        rec.recommend(k=k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = rec.recommend(k=k)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        check_recommendations(recs, data, k, data.n_users)
+        check_no_kernel(phase)
+        plain = cls(cfg, device="cpu").load(path, data)
+        differ = same_top_k(recs, plain.recommend(k=k), k)
+        err = float(np.abs(scores - plain.predict(pairs)).max())
+        if err > 1e-4:
+            fail(f"{phase}: predict() differs from the CPU's by {err}")
+        n_eval = len(data.eval_candidates(data.test[0]).users)
+        log(phase, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_NCF_METRICS[name])
+            + f" (expected to {METRIC_TOL}); predict(300 pairs) in [0, 1], max |d| vs the CPU {err:.3g}; "
+            f"recommend(k={k}) {data.n_users} users, no train item, {differ} rows differ from the CPU's at "
+            "near-ties; no kernel launched")
+        log(phase, f"test() {n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms); recommend() "
+            f"{data.n_users / rec_s:.1f} users/s ({rec_s * 1e3:.2f} ms)")
+        log(phase, "recommend(): " + device_breakdown(lambda: rec.recommend(k=k)))
+
+
+def train_pointwise(name, phase, seed, root_dir, data, rec=None):
+    """Train ``name`` at its shipped config through XRecommender(cfg)
+    .train(data) (or through ``rec``, a recommender built for it), with no
+    kernel launched; returns the recommender, the train result and the test()
+    row."""
+    rec = rec or NCF_FAMILY[name][0](ncf_config(name, seed, root_dir))
+    zero_kernel_counts()
+    result = rec.train(data)
+    res = rec.test()
+    check_no_kernel(phase)
+    engine = rec.engine
+    trainer = engine.epoch_fn
+    rates = [trainer.padded_size / s for s in engine.epoch_seconds]
+    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} positives + "
+        f"{trainer.batch_size * trainer.num_neg} negatives, best epoch {result['best_epoch']}, train() "
+        f"{result['run_time']:.2f} s; examples/s (positives) per epoch: " + ", ".join(f"{r:.0f}" for r in rates))
+    if len(rates) > 1:
+        log(phase, f"examples/s after the first epoch: median {np.median(rates[1:]):.1f}, "
+            f"min {min(rates[1:]):.1f}, max {max(rates[1:]):.1f} ({1 + trainer.num_neg} rows an example)")
+    log(phase, f"best valid ndcg@10 {result['valid_metric']:.6f}; test() "
+        + ", ".join(f"{k} {res[k]:.6f}" for k in EXPECTED_NCF_METRICS[name]))
+    return rec, result, res
+
+
+def train_ncf_family(seed, root_dir, data):
+    """Phase 18. Returns the trained MLP recommender."""
+    out = {}
+    for name in NCF_FAMILY:
+        phase = f"{name.lower()}-train"
+        rec, result, res = train_pointwise(name, phase, seed, root_dir, data)
+        band = NCF_BANDS[name]
+        log(phase, in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+            + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
+        check_mf_serving(phase, rec)
+        log(phase, "one more epoch: " + device_breakdown(
+            lambda: float(rec.engine.epoch_fn.run(rec.engine.generator)), top=8))
+        rec.model.load_trimmed(rec.params_from_jax(rec.engine.load_params()))  # the best again
+        out[name] = (rec, result)
+    rec, result = out["NCF"]
+    again, again_result, _ = train_pointwise("NCF", "ncf-train-again", seed, root_dir, data)
+    last = [ncf_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
+            for r in (result, again_result)]
+    best = [r.model.state_dict() for r in (rec, again)]
+    same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
+            and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
+            and (result["best_epoch"], result["valid_metric"]) == (again_result["best_epoch"],
+                                                                   again_result["valid_metric"]))
+    if not same:
+        fail("two NCF trainings of one seed gave different parameters")
+    log("ncf-train", f"a second training of seed {seed} gave the same best and last parameters bit for bit "
+        f"(best epoch {result['best_epoch']}, valid ndcg@10 {result['valid_metric']:.6f})")
+    return out["MLP"][0]
+
+
+def warm_started_ncf(seed, root_dir, data, mlp):
+    """Phase 19: NeuCF(cfg, gmf_params, mlp_params).train(data) from the
+    port's trees of phase 18's MLP and of a GMF trained at NCF's emb_dim
+    (NeuMF's GMF tower is emb_dim wide, as in the reference's pretraining).
+    The weights training starts from are read as ``init_weights`` leaves
+    them."""
+    cfg = ncf_config("NCF", seed, root_dir)
+    gmf_cfg = ncf_config("GMF", seed, root_dir).replace(model={"emb_dim": cfg.model.emb_dim})
+    gmf, _, _ = train_pointwise("GMF", "gmf-pretrain", seed, root_dir, data, GMFRecommender(gmf_cfg))
+    gmf_params, mlp_params = (nest_dotted(r.model.state_dict()) for r in (gmf, mlp))
+    rec = NeuCF(cfg, gmf_params=gmf_params, mlp_params=mlp_params)
+    start = {}
+    init = NeuMF.init_weights
+
+    def kept(model, generator):
+        init(model, generator)
+        start.update({key: value.clone() for key, value in model.state_dict().items()})
+        return model
+
+    NeuMF.init_weights = kept
+    try:
+        _, result, res = train_pointwise("NCF", "ncf-warm", seed, root_dir, data, rec)
+    finally:
+        NeuMF.init_weights = init
+    given = {f"{side}_emb_gmf": gmf_params[f"{side}_emb"] for side in ("user", "item")}
+    given.update({f"{side}_emb_mlp": mlp_params[f"{side}_emb"] for side in ("user", "item")})
+    given.update({f"layers.{i}.{leaf}": mlp_params["layers"][str(i)][leaf]
+                  for i in range(len(rec.model.layers)) for leaf in ("w", "b")})
+    for key, value in given.items():
+        if not torch.equal(start[key], value):
+            fail(f"ncf-warm: the initial {key} is not the pretrained one")
+    if not all(np.isfinite(res[key]) for key in EXPECTED_NCF_METRICS["NCF"]):
+        fail(f"ncf-warm: test() gave non-finite metrics {res}")
+    log("ncf-warm", f"started from the pretrained GMF and MLP tables and layers bit for bit ({len(given)} "
+        f"tensors); best valid ndcg@10 {result['valid_metric']:.6f}, test ndcg@10 {res['ndcg@10']:.6f}")
+
+
+def ncf_phases(seed, root_dir):
+    """Phases 17-19."""
+    serve_ncf_checkpoints(root_dir)
+    data = mf_split()
+    warm_started_ncf(seed, root_dir, data, train_ncf_family(seed, root_dir, data))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1570,6 +1789,7 @@ def main():
         train_counts["shipped_shape"] = sasrec_shipped_shape(args.seed, root_dir, ml1m)
         train_counts.update(sasrec_head_dims(args.seed, root_dir))
         ring_rows, ring_launches = sharded_phases(args.seed, root_dir)
+        ncf_phases(args.seed, root_dir)
     for path, counts in train_counts.items():
         launches[f"{path}/steps"] = counts["steps"]
         if "eval" in counts:

@@ -155,3 +155,14 @@ def test_refuses_outside_the_repo_and_without_cuda(tmp_path):
         out = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=120, cwd=cwd)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("name,emb_dim", [("GMF", 64), ("MLP", 8), ("NCF", 8)])
+def test_ncf_config_is_the_shipped_config(name, emb_dim):
+    cfg = chip_smoke.ncf_config(name, 3, "/nowhere")
+    assert cfg.system.seed == 3 and cfg.system.root_dir == "/nowhere"
+    assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
+    m = cfg.model
+    assert (m.model, m.emb_dim, m.num_negative, m.batch_size, m.lr, m.max_n_update) == (name, emb_dim, 4, 400, 1e-3, 20)
+    assert set(chip_smoke.NCF_BANDS[name]) == {"valid", "test"}
+    assert os.path.isdir(os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.NCF_FAMILY[name][2]))

@@ -26,6 +26,8 @@ chip_smoke.rowadam_inputs(100, 40, 4, 0, "cpu", zipf=True)
 chip_smoke.mf_config(0, "unused", sparse_optim=True)
 chip_smoke.sasrec_config(0, "unused", num_heads=1)
 chip_smoke.mesh_config(0, "unused", (1, 4))
+for name in chip_smoke.NCF_FAMILY:
+    chip_smoke.ncf_config(name, 0, "unused")
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather
 make_mesh(1, 4, ["cpu"] * 4)
@@ -39,7 +41,7 @@ def test_port_and_chip_smoke_import_without_jax_pandas_or_reference():
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=120, cwd=REPO
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 37  # every module was reached
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40  # every module was reached
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
@@ -67,3 +69,15 @@ def test_mf_recommender_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MatrixFactorization({"model": {"model": "MF"}})
     assert MatrixFactorization({"model": {"model": "MF"}}, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["GMFRecommender", "MLPRecommender", "NeuCF"])
+def test_ncf_family_recommenders_default_to_cuda(monkeypatch, name):
+    from beta_recsys_tpu_torch import recommenders
+
+    cls = getattr(recommenders, name)
+    config = {"model": {"model": cls.model_name}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(config)
+    assert cls(config, device="cpu").device == torch.device("cpu")
