@@ -13,7 +13,10 @@ nothing is transposed; ``item_emb`` keeps its padding row 0. The
 ``user_emb``, ``item_emb``, ``user_bias``, ``item_bias``, 0-d
 ``global_bias``), ``gmf_params_from_jax``, ``mlp_params_from_jax`` and
 ``ncf_params_from_jax`` for GMF, MLP and NeuMF (their ``layers`` list comes
-as a list or as a dict keyed "0", "1", ..., like SASRec's ``blocks``), and
+as a list or as a dict keyed "0", "1", ..., like SASRec's ``blocks``),
+``lightgcn_params_from_jax`` and ``ngcf_params_from_jax`` for LightGCN
+(``user_emb``, ``item_emb``) and NGCF (also its ``gc`` and ``bi`` lists of
+{w, b}, weights (in, out), as a list or keyed "0", "1", ...), and
 ``params_to_jax`` is the inverse of all of them: the tree the JAX package's
 ``from_state_dict`` restores, as float32 numpy arrays. ``flatten_params``
 also takes a tree whose leaves are tensors (a ``state_dict`` nested by
@@ -61,6 +64,16 @@ def mlp_params_from_jax(params):
 
 def ncf_params_from_jax(params):
     """{dotted name: float32 tensor} for ``NeuMF.load_state_dict``."""
+    return flatten_params(params)
+
+
+def lightgcn_params_from_jax(params):
+    """{name: float32 tensor} for ``LightGCN.load_state_dict``."""
+    return flatten_params(params)
+
+
+def ngcf_params_from_jax(params):
+    """{dotted name: float32 tensor} for ``NGCF.load_state_dict``."""
     return flatten_params(params)
 
 

@@ -183,15 +183,16 @@ class Recommender:
         users = np.arange(model.n_users) if users is None else _ids(users, model.n_users, "user")
         train_csr = self.data.user_item_csr() if exclude_train else None
         out_items, out_scores = [], []
-        for start in range(0, len(users), user_block):
-            blk = users[start:start + user_block]
-            scores = model.score_all(torch.as_tensor(blk, device=self.device))
-            scores = scores[:, : model.n_items]
-            if train_csr is not None:
-                scores = scores.masked_fill(self._train_mask(train_csr, blk, model.n_items), -torch.inf)
-            values, idx = topk_lowest_index(scores, k)
-            out_scores.append(values.cpu().numpy().reshape(-1))
-            out_items.append(idx.cpu().numpy().reshape(-1))
+        with model.holding_embeddings():  # a graph model propagates once, not once a block
+            for start in range(0, len(users), user_block):
+                blk = users[start:start + user_block]
+                scores = model.score_all(torch.as_tensor(blk, device=self.device))
+                scores = scores[:, : model.n_items]
+                if train_csr is not None:
+                    scores = scores.masked_fill(self._train_mask(train_csr, blk, model.n_items), -torch.inf)
+                values, idx = topk_lowest_index(scores, k)
+                out_scores.append(values.cpu().numpy().reshape(-1))
+                out_items.append(idx.cpu().numpy().reshape(-1))
         return {
             DEFAULT_USER_COL: np.repeat(users, k),
             DEFAULT_ITEM_COL: np.concatenate(out_items) if out_items else np.zeros(0, np.int64),

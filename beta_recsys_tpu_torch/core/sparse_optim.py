@@ -112,8 +112,9 @@ class SparseEpochTrainer(EpochBatches):
             [(self.tables[name].data, *self.state["moments"][name]) for name in self.fused]
         ) if self.fused else None
 
-    def step(self, users, pos, neg):
-        """One batch: returns its loss as a 0-d device tensor."""
+    def step(self, users, pos, neg, generator=None):
+        """One batch: returns its loss as a 0-d device tensor (MF's row loss
+        draws no dropout, so ``generator`` is unused)."""
         batch = {"users": users, "pos_items": pos, "neg_items": neg}
         role_ids = {"users": users, "items_cat": torch.cat([pos, neg])}
         # Gradients with respect to fresh leaves of the gathered rows, never
@@ -255,9 +256,10 @@ class ShardedSparseEpochTrainer(EpochBatches):
             return local_ring_gather(local_tables, ids, self.n_model, capacity)
         return local_psum_gather(local_tables, ids)
 
-    def step(self, users, pos, neg):
+    def step(self, users, pos, neg, generator=None):
         """One batch: returns its loss (the global batch mean) as a 0-d tensor
-        on the mesh's first device."""
+        on the mesh's first device (``generator`` is unused, as in
+        ``SparseEpochTrainer.step``)."""
         devices, n_data, n_model = self.mesh.devices, self.n_data, self.n_model
         b_local = users.shape[0] // n_data
         batch, role_ids = [], []

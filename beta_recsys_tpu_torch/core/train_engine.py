@@ -101,7 +101,9 @@ def _padded_order(perm, padded_size):
 
 class EpochBatches:
     """An epoch's pairwise batches formed at once, then a step loop over them.
-    Subclasses define ``step(users, pos, neg) -> 0-d loss tensor``."""
+    Subclasses define ``step(users, pos, neg, generator) -> 0-d loss
+    tensor``; each step draws its dropout, if the model has any, from the
+    epoch's generator."""
 
     def __init__(self, train_arrays, batch_size, neg_sampler, device):
         self.device = torch.device(device)
@@ -126,18 +128,18 @@ class EpochBatches:
 
     def run(self, generator):
         """Form this epoch's batches and train on them; the mean batch loss."""
-        return self.run_batches(*self.form(generator))
+        return self.run_batches(*self.form(generator), generator=generator)
 
-    def run_batches(self, users, pos, neg):
+    def run_batches(self, users, pos, neg, generator=None):
         """Train on (num_batches, B) id arrays; the mean batch loss as a 0-d
         device tensor."""
         users, pos, neg = (torch.as_tensor(x, dtype=torch.long, device=self.device) for x in (users, pos, neg))
         total = torch.zeros((), device=self.device)
         for b in range(users.shape[0]):
-            total += self.step(users[b], pos[b], neg[b])
+            total += self.step(users[b], pos[b], neg[b], generator)
         return total / users.shape[0]
 
-    def step(self, users, pos, neg):
+    def step(self, users, pos, neg, generator):
         raise NotImplementedError
 
 
@@ -149,9 +151,9 @@ class DenseEpochTrainer(EpochBatches):
         self.model = model
         self.optimizer = optimizer
 
-    def step(self, users, pos, neg):
+    def step(self, users, pos, neg, generator):
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss({"users": users, "pos_items": pos, "neg_items": neg})
+        loss = self.model.loss({"users": users, "pos_items": pos, "neg_items": neg}, generator)
         loss.backward()
         self.optimizer.step()
         return loss.detach()

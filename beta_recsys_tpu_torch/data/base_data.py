@@ -8,8 +8,13 @@ place of pandas. It keeps the reference's semantics exactly:
 - ratings ``> bin_thld`` become 1, the others keep their value;
 - users and items get dense ids in order of FIRST APPEARANCE in train (as
   ``pd.Series.unique`` gives them), not in sorted order.
+
+The graph artifacts (``create_adj_mat``, ``get_adj_mat``, ``get_norm_adj``)
+are the JAX package's scipy constructions over the (users + items) node
+graph, with the same arrays in the same order.
 """
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -158,3 +163,79 @@ class BaseData:
             ratings=ratings,
             mask=mask,
         )
+
+    # -- graph artifacts -----------------------------------------------------------
+
+    def _bipartite(self):
+        """Binarized symmetric adjacency [[0, R], [R^T, 0]] over the n_users +
+        n_items nodes (items after users) as scipy CSR; duplicate train pairs
+        count once."""
+        n = self.n_users + self.n_items
+        u = self.train[DEFAULT_USER_COL].astype(np.int64)
+        i = self.train[DEFAULT_ITEM_COL].astype(np.int64) + self.n_users
+        upper = sp.csr_matrix((np.ones(len(u), dtype=np.float32), (u, i)), shape=(n, n))
+        upper.data[:] = 1.0
+        return upper + upper.T
+
+    def create_adj_mat(self):
+        """(A, D^-1 (A + I), D^-1 A) as scipy CSR, each row-normalized by its
+        own degrees (JAX ``create_adj_mat``, ``data/base_data.py:232-246``)."""
+        adj = self._bipartite()
+        norm_adj = _row_normalize(adj + sp.eye(adj.shape[0], dtype=np.float32))
+        mean_adj = _row_normalize(adj)
+        return adj.tocsr(), norm_adj.tocsr(), mean_adj.tocsr()
+
+    def get_adj_mat(self, config=None, cache_dir=None):
+        """``create_adj_mat``'s triple, cached as ``ngcf_<dataset>_<split>_adj.npz``
+        under ``cache_dir``, else under the config's ``system.process_dir``
+        (then ``dataset.data_dir``, then "."); built in memory without either
+        (JAX ``get_adj_mat``, ``data/base_data.py:248-289``, the same file)."""
+        path = None
+        if cache_dir is not None or config is not None:
+            system = config["system"] if config is not None and "system" in config else {}
+            dataset = config["dataset"] if config is not None and "dataset" in config else {}
+            if cache_dir is None:
+                cache_dir = system.get("process_dir") or dataset.get("data_dir") or "."
+            tag = f"ngcf_{dataset.get('dataset', 'data')}_{dataset.get('data_split', 'split')}"
+            path = os.path.join(cache_dir, tag + "_adj.npz")
+        n = self.n_users + self.n_items
+        if path is not None and os.path.exists(path):
+            with np.load(path, allow_pickle=False) as z:
+                return tuple(
+                    sp.csr_matrix((z[f"{p}_data"], z[f"{p}_indices"], z[f"{p}_indptr"]), shape=(n, n))
+                    for p in ("adj", "norm", "mean")
+                )
+        mats = self.create_adj_mat()
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            np.savez(path, **{f"{p}_{field}": getattr(m, field) for p, m in zip(("adj", "norm", "mean"), mats)
+                              for field in ("data", "indices", "indptr")})
+        return mats
+
+    def get_norm_adj(self, variant="sym"):
+        """The normalized adjacency as COO arrays (rows, cols, vals),
+        int32/int32/float32, in the JAX package's order (scipy's COO of A's
+        CSR): "sym" D^-1/2 A D^-1/2, "row" D^-1 A, "row_selfloop" D^-1 (A + I)
+        with the degrees of A + I (JAX ``get_norm_adj``,
+        ``data/base_data.py:333-366``)."""
+        bip = self._bipartite()
+        if variant == "row_selfloop":
+            bip = (bip + sp.eye(bip.shape[0], dtype=np.float32, format="csr")).tocsr()
+        adj = bip.tocoo()
+        deg = np.asarray(adj.sum(axis=1)).flatten()
+        if variant == "sym":
+            d_inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+            vals = d_inv_sqrt[adj.row] * adj.data * d_inv_sqrt[adj.col]
+        elif variant in ("row", "row_selfloop"):
+            d_inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-12), 0.0)
+            vals = d_inv[adj.row] * adj.data
+        else:
+            raise ValueError(f"Unknown variant {variant}")
+        return adj.row.astype(np.int32), adj.col.astype(np.int32), vals.astype(np.float32)
+
+
+def _row_normalize(adj):
+    """D^-1 A of a scipy sparse matrix (rows of degree 0 stay 0), as COO."""
+    rowsum = np.array(adj.sum(1)).flatten()
+    d_inv = np.where(rowsum > 0, 1.0 / np.maximum(rowsum, 1e-12), 0.0)
+    return sp.diags(d_inv).dot(adj).tocoo()

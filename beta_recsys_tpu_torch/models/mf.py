@@ -61,6 +61,12 @@ class MF(RecModel):
         )
         return torch.sigmoid(logits)
 
+    def score_candidates(self, users, cand_items):
+        """Through ``score_pairs``, as the JAX MF scores candidates (not the
+        factorized default, which omits the sigmoid and the global bias)."""
+        users_b = users[:, None].expand(cand_items.shape)
+        return self.score_pairs(users_b, cand_items)
+
     def score_all(self, users):
         logits = (
             self.user_emb[users] @ self.item_emb.T

@@ -1,14 +1,16 @@
 """User-facing recommender wrappers, one per model family.
 
 Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
-NeuMF and SASRec are ported so far.
+NeuMF, LightGCN, NGCF and SASRec are ported so far.
 """
 
 from ..convert import (
     gmf_params_from_jax,
+    lightgcn_params_from_jax,
     mf_params_from_jax,
     mlp_params_from_jax,
     ncf_params_from_jax,
+    ngcf_params_from_jax,
     sasrec_params_from_jax,
 )
 from ..core.recommender import Recommender
@@ -45,12 +47,36 @@ class NeuCF(Recommender):
     model_name = "NCF"
     params_from_jax = staticmethod(ncf_params_from_jax)
 
-    def __init__(self, config, gmf_params=None, mlp_params=None, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, gmf_params=None, mlp_params=None, device=None, mesh_devices=None):
+        super().__init__(config, device, mesh_devices)
         self._pretrained = {"gmf_params": gmf_params, "mlp_params": mlp_params}
 
     def build_artifacts(self, data):
         return {k: v for k, v in self._pretrained.items() if v is not None}
+
+
+class LightGCN(Recommender):
+    """LightGCN over the normalized interaction graph. ``adj_variant`` in
+    the model config picks the normalization: "sym" (the paper's, default),
+    "row" or "row_selfloop" (the reference's D^-1 (A + I), the shipped
+    config's); ``graph_format`` the propagation route (``ops/graph.py``).
+    Serving propagates once a ``test()``, ``predict()`` or ``recommend()``."""
+
+    model_name = "LightGCN"
+    params_from_jax = staticmethod(lightgcn_params_from_jax)
+
+    def build_artifacts(self, data):
+        return {"adj": data.get_norm_adj(self.config.model.get("adj_variant", "sym"))}
+
+
+class NGCF(Recommender):
+    """NGCF over the row-normalized interaction graph D^-1 A."""
+
+    model_name = "NGCF"
+    params_from_jax = staticmethod(ngcf_params_from_jax)
+
+    def build_artifacts(self, data):
+        return {"adj": data.get_norm_adj("row")}
 
 
 class SASRec(Recommender):

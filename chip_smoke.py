@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (beta_recsys_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only]
+    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only | --profile PHASE]
 
 Phases, each printed with the seconds elapsed:
   0. environment: the card (nvidia-smi), torch and CUDA versions, TF32 flags;
@@ -65,13 +65,29 @@ Phases, each printed with the seconds elapsed:
      at NCF's width (emb 8; the shipped GMF is 64 wide): it starts from
      their tables and layers bit for bit; its metrics are printed. Phases
      17-19 launch none of the kernels (every count read 0 around each);
- 20. a JSON line of every kernel with its launches on each path, counted
+ 20. serve the JAX-trained seed-0 LightGCN and NGCF checkpoints: load ->
+     test() -> predict() -> recommend(k=10); test() reproduces the JAX
+     package's metrics to 1e-4, predict() the port's on the CPU to 1e-6, the
+     top-10 lists match the CPU's; LightGCN's test() once more through the
+     sparse (CSR) route, within 1e-5 of the dense route's, and whether that
+     route's products repeat bit for bit; users/s of test() and recommend();
+ 21. train LightGCN at its shipped config (edge keep 0.6, batch 1,024, Adam
+     at lr 2.5e-4) through LightGCN(cfg).train(data), seed 0, to early stop:
+     best valid and test ndcg@10 inside the JAX package's ten-seed bands;
+     its first 3 epochs twice, bit for bit; positives/s;
+ 22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
+     Phases 20-22 launch none of the kernels, and each profiles (a
+     test() and a recommend() of each checkpoint; one epoch of each model)
+     in a process of its own (``--profile``), printing a WARNING where the
+     profiler recorded no CUDA events;
+ 23. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
-drives no path). Imports nothing of JAX or of the JAX package.
+drives no path); with --profile <phase>, only that graph phase's profiles
+and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -90,7 +106,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from beta_recsys_tpu_torch.config import load_config  # noqa: E402
-from beta_recsys_tpu_torch.convert import nest_dotted, ncf_params_from_jax, sasrec_params_from_jax  # noqa: E402
+from beta_recsys_tpu_torch.convert import (  # noqa: E402
+    lightgcn_params_from_jax,
+    ncf_params_from_jax,
+    nest_dotted,
+    sasrec_params_from_jax,
+)
 from beta_recsys_tpu_torch.core.checkpoint import load_raw_checkpoint  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
     ShardedSparseEpochTrainer,
@@ -107,6 +128,7 @@ from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
 from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E402
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
+from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
 from beta_recsys_tpu_torch.models import build_model  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
@@ -125,7 +147,9 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
+    NGCF,
     GMFRecommender,
+    LightGCN,
     MatrixFactorization,
     MLPRecommender,
     NeuCF,
@@ -256,6 +280,31 @@ NCF_BANDS = {
     "NCF": {"valid": (0.15180849134922028, 0.004850082781757105),
             "test": (0.12909825518727303, 0.005508611261360261)},
 }
+# The graph models: each recommender, shipped config and JAX-trained seed-0
+# checkpoint.
+GRAPH_FAMILY = {
+    "LightGCN": (LightGCN, "configs/lightgcn_default.json", "lightgcn_default_20260821_134437_yybcvt"),
+    "NGCF": (NGCF, "configs/ngcf_default.json", "ngcf_default_20260821_135007_yybcvt"),
+}
+# The JAX package's XRecommender(...).load(checkpoint, data).test() on the
+# structured split (tests/test_torch_serving_graph.py holds the same values).
+EXPECTED_GRAPH_METRICS = {
+    "LightGCN": {"ndcg@10": 0.286911, "recall@10": 0.603393, "precision@10": 0.060339, "map@10": 0.192452},
+    "NGCF": {"ndcg@10": 0.256701, "recall@10": 0.568399, "precision@10": 0.056840, "map@10": 0.164256},
+}
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's training at each shipped config on the structured split:
+# `JAX_PLATFORMS=cpu python port_tools/jax_graph_band.py`. A port run must land
+# within mean +- 3 std.
+GRAPH_BANDS = {
+    "LightGCN": {"valid": (0.28174264132976534, 0.0015398403052019594),
+                 "test": (0.28902767300605775, 0.005579727805581206)},
+    "NGCF": {"valid": (0.2763703644275665, 0.005394374480066781),
+             "test": (0.2530310615897179, 0.011056671663278428)},
+}
+SPARSE_ROUTE_TOL = 1e-5  # test() through the CSR route against the dense route's
+PREDICT_TOL = 1e-6  # served scores on the card against the port's on the CPU
+REPEAT_EPOCHS = 3  # LightGCN's epochs trained twice, bit for bit
 
 T0 = time.perf_counter()
 
@@ -347,12 +396,13 @@ def queued_ms(fn, devices=("cuda",), reps=20, sleep_cycles=40_000_000):
     return start.elapsed_time(end) / reps
 
 
-def device_breakdown(fn, top=5, kernel=None):
+def device_breakdown(fn, top=5, kernel=None, steps=None):
     """One profiled call of ``fn``: its wall time, the device's busy share of
     it (device time of kernels and copies over wall time), the ``top``
-    device activities by time and, with ``kernel``, the time of the kernels
-    whose name holds it. The profiler adds host overhead to the wall time,
-    so the busy share is a lower bound."""
+    device activities by time, with ``kernel`` the time of the kernels whose
+    name holds it and with ``steps`` the device activities a step. The
+    profiler adds host overhead to the wall time, so the busy share is a
+    lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -381,9 +431,10 @@ def device_breakdown(fn, top=5, kernel=None):
         mine = (f"; {kernel} x{sum(c for _, c in hits)} {t_us / 1e3:.3f} ms "
                 f"({100 * t_us / busy_us:.1f}% of device busy)")
     n_ops = sum(c for _, _, c in on_device)
+    per_step = f" ({n_ops / steps:.1f} a step)" if steps else ""
     return (f"profiled wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms "
             f"({100 * busy_us / wall_us:.1f}%, idle {100 - 100 * busy_us / wall_us:.1f}%) in {n_ops} "
-            f"device activities; top: {tops}{mine}")
+            f"device activities{per_step}; top: {tops}{mine}")
 
 
 def attention_bound(n, t, dh, dtype):
@@ -1517,14 +1568,16 @@ def zero_kernel_counts():
 
 
 def check_no_kernel(path):
-    """The NCF family's paths run no hand-written kernel: the JAX package
-    trains and serves them through XLA code alone."""
+    """The NCF family's and the graph models' paths run no hand-written
+    kernel: the JAX package trains and serves them through XLA code alone.
+    Returns each kernel's count (all 0)."""
     torch.cuda.synchronize()
     counts = {"flash_causal_attention_fwd": flash_causal_attention.launches,
               "flash_causal_attention_bwd": flash_causal_attention_bwd.launches,
               "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches}
     if any(counts.values()):
         fail(f"{path}: the path launched kernels {counts}, expected none")
+    return counts
 
 
 def ncf_config(name, seed, root_dir):
@@ -1681,6 +1734,241 @@ def ncf_phases(seed, root_dir):
     warm_started_ncf(seed, root_dir, data, train_ncf_family(seed, root_dir, data))
 
 
+# -- the graph models (phases 20-22) ----------------------------------------------
+
+
+def graph_config(name, seed, root_dir, **model):
+    """The model's shipped config on the structured synthetic split, one
+    evaluation copy, as the JAX package's parity runs train it."""
+    return load_config(os.path.join(REPO, GRAPH_FAMILY[name][1])).replace(
+        system={"root_dir": root_dir, "seed": seed},
+        dataset={"dataset": "synthetic_structured", "n_test": 1},
+        model=model,
+    )
+
+
+def graph_checkpoint(name):
+    return os.path.join(REPO, "parity_runs/checkpoints", GRAPH_FAMILY[name][2])
+
+
+def check_graph_serving(phase, rec):
+    """recommend(k=10) for every user well-formed with no train item;
+    predict() finite (NGCF's scores are raw dot products, not in [0, 1])."""
+    k = 10
+    recs = rec.recommend(k=k)
+    torch.cuda.synchronize()
+    check_recommendations(recs, rec.data, k, rec.data.n_users)
+    pairs = {c: rec.data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+    scores = rec.predict(pairs)
+    if scores.shape != (300,) or not np.isfinite(scores).all():
+        fail(f"{phase}: predict() gave {scores.shape} scores with non-finite values")
+    log(phase, f"recommend(k={k}) {rec.data.n_users} users well-formed, no train item; predict(300 pairs) finite")
+
+
+def sparse_route_repeats(prop, seed, d=64):
+    """The sparse route's A @ x and its x-gradient A^T @ g, with the packed
+    edge values and with dropped ones, each computed twice from the same
+    inputs: {product: largest |difference|}, 0 where the two are bit-equal."""
+    device = prop.vals.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(prop.n_nodes, d, generator=gen, device=device)
+    g = torch.randn(prop.n_nodes, d, generator=gen, device=device)
+    dropped = edge_dropout(gen, prop.vals, 0.6)
+    outs = []
+    for vals in (None, dropped, None, dropped):
+        xr = x.clone().requires_grad_()
+        y = prop.operator(vals)(xr)
+        y.backward(g)
+        outs += [y.detach(), xr.grad]
+    names = ("A @ x", "A^T @ g", "A @ x (dropped edges)", "A^T @ g (dropped edges)")
+    return {name: 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+            for name, a, b in zip(names, outs[:4], outs[4:])}
+
+
+def propagation_times(dense, sparse, d=64):
+    """One layer's A @ x at width ``d`` through each route beside the least
+    time the card could take for it (HBM bytes: the route's A read once, x
+    read and the output written once; float32 operations: 2 a stored entry
+    and column), and the time a step takes to build each route's A from
+    dropped edge values."""
+    n, n_edges, device = dense.n_nodes, dense.vals.numel(), dense.vals.device
+    x = torch.randn(n, d, device=device)
+    vals = edge_dropout(torch.Generator(device=device).manual_seed(0), dense.vals, 0.6)
+    parts = []
+    for route, op, a_bytes, stored in (("dense", dense.operator(), 4 * n * n, n * n),
+                                       ("CSR", sparse.operator(), 12 * n_edges + 8 * (n + 1), n_edges)):
+        bound = max((a_bytes + 8 * n * d) / HBM_BYTES_PER_S, 2 * stored * d / PEAK_FLOPS[torch.float32]) * 1e3
+        parts.append(f"{route} A @ x {cuda_ms(lambda: op(x)):.4f} ms (bound {bound:.4f})")
+    parts.append(f"a step's A from dropped values: dense {cuda_ms(lambda: dense.operator(vals)):.4f} ms, "
+                 f"CSR (A and A^T) {cuda_ms(lambda: sparse.operator(vals)):.4f} ms")
+    return f"n {n}, {n_edges} edges, d {d}: " + "; ".join(parts)
+
+
+def profiled_in_child(phase, seed):
+    """Run ``chip_smoke.py --profile <phase>`` in a process of its own and
+    print its lines: after the profiles of phases 1-19 in one process, a
+    later profile has come back without CUDA events."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", phase, "--seed", str(seed)],
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        print(f"    {line}", flush=True)
+    if out.returncode:
+        fail(f"{phase}: the profiling process exited {out.returncode}: {out.stderr[-3000:]}")
+
+
+def serve_graph_checkpoints(root_dir, data):
+    """Phase 20: each checkpoint's load, test(), predict() and recommend()
+    against the JAX package's metrics and the port on the CPU, and LightGCN's
+    test() through the sparse route. Returns the kernels' counts by path."""
+    counts, dense_res, served = {}, {}, {}
+    for name, (cls, _, _) in GRAPH_FAMILY.items():
+        path = graph_checkpoint(name)
+        phase = f"{name.lower()}-serve"
+        cfg = load_config(path).replace(system={"root_dir": root_dir})
+        zero_kernel_counts()
+        rec = served[name] = cls(cfg).load(path, data)
+        res = dense_res[name] = rec.test()
+        for key, want in EXPECTED_GRAPH_METRICS[name].items():
+            if abs(res[key] - want) > METRIC_TOL:
+                fail(f"{name} checkpoint test() {key} = {res[key]:.6f}, expected {want} +- {METRIC_TOL}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.test()
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        pairs = {c: data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+        scores = rec.predict(pairs)
+        k = 10
+        rec.recommend(k=k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = rec.recommend(k=k)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        check_recommendations(recs, data, k, data.n_users)
+        counts[phase] = check_no_kernel(phase)
+        plain = cls(cfg, device="cpu").load(path, data)
+        differ = same_top_k(recs, plain.recommend(k=k), k)
+        err = float(np.abs(scores - plain.predict(pairs)).max())
+        if err > PREDICT_TOL:
+            fail(f"{phase}: predict() differs from the CPU's by {err}")
+        n_eval = len(data.eval_candidates(data.test[0]).users)
+        log(phase, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_GRAPH_METRICS[name])
+            + f" (expected to {METRIC_TOL}); predict(300 pairs) max |d| vs the CPU {err:.3g}; "
+            f"recommend(k={k}) {data.n_users} users, no train item, {differ} rows differ from the CPU's at "
+            "near-ties; no kernel launched")
+        log(phase, f"test() {n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms); recommend() "
+            f"{data.n_users / rec_s:.1f} users/s ({rec_s * 1e3:.2f} ms)")
+
+    path = graph_checkpoint("LightGCN")
+    cfg = load_config(path).replace(system={"root_dir": root_dir}, model={"graph_format": "chunked"})
+    zero_kernel_counts()
+    sparse = LightGCN(cfg).load(path, data)
+    if sparse.model.prop.format != "csr":
+        fail(f"graph_format 'chunked' packed a {sparse.model.prop.format!r} propagator")
+    res = sparse.test()
+    gap = max(abs(res[key] - dense_res["LightGCN"][key]) for key in res)
+    if gap > SPARSE_ROUTE_TOL:
+        fail(f"lightgcn-serve: test() through the sparse route differs from the dense route's by {gap}")
+    repeats = sparse_route_repeats(sparse.model.prop, 0)
+    counts["lightgcn-serve-sparse"] = check_no_kernel("lightgcn-serve-sparse")
+    log("lightgcn-serve", f"sparse route (CSR both ways): test() within {gap:.3g} of the dense route's; computed "
+        "twice, " + ", ".join(f"{name} {'bit for bit alike' if not d else f'differs by up to {d:.3g}'}"
+                              for name, d in repeats.items()))
+    log("lightgcn-serve", propagation_times(served["LightGCN"].model.prop, sparse.model.prop))
+    profiled_in_child("graph-serve", 0)
+    return counts
+
+
+def train_graph(name, phase, seed, root_dir, data, **model):
+    """Train ``name`` at its shipped config through XRecommender(cfg)
+    .train(data); returns the recommender, the train result, the test() row
+    and the kernels' counts around the path."""
+    rec = GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, **model))
+    zero_kernel_counts()
+    result = rec.train(data)
+    res = rec.test()
+    counts = check_no_kernel(phase)
+    engine = rec.engine
+    trainer = engine.epoch_fn
+    rates = [trainer.padded_size / s for s in engine.epoch_seconds]
+    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} positives, best epoch "
+        f"{result['best_epoch']}, train() {result['run_time']:.2f} s; positives/s per epoch: "
+        + ", ".join(f"{r:.0f}" for r in rates))
+    if len(rates) > 1:
+        log(phase, f"positives/s after the first epoch: median {np.median(rates[1:]):.1f}, "
+            f"min {min(rates[1:]):.1f}, max {max(rates[1:]):.1f}")
+    log(phase, f"best valid ndcg@10 {result['valid_metric']:.6f}; test() "
+        + ", ".join(f"{k} {res[k]:.6f}" for k in EXPECTED_GRAPH_METRICS[name]))
+    return rec, result, res, counts
+
+
+def graph_training(seed, root_dir, data):
+    """Phases 21-22: each model to early stop inside the JAX band, LightGCN's
+    first epochs twice bit for bit, and a profiled epoch of each. Returns the
+    kernels' counts by path."""
+    counts = {}
+    for name in GRAPH_FAMILY:
+        phase = f"{name.lower()}-train"
+        rec, result, res, counts[phase] = train_graph(name, phase, seed, root_dir, data)
+        band = GRAPH_BANDS[name]
+        log(phase, in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+            + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
+        check_graph_serving(phase, rec)
+        if name == "LightGCN":
+            runs = [train_graph(name, f"{phase}-repeat", seed, root_dir, data, max_epoch=REPEAT_EPOCHS)
+                    for _ in range(2)]
+            (first, first_result, _, _), (again, again_result, _, _) = runs
+            last = [lightgcn_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
+                    for r in (first_result, again_result)]
+            best = [r.model.state_dict() for r in (first, again)]
+            same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
+                    and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
+                    and first.engine.bookkeeper.history == again.engine.bookkeeper.history)
+            if not same:
+                fail(f"two LightGCN trainings of {REPEAT_EPOCHS} epochs of one seed gave different parameters")
+            log(phase, f"two more trainings of seed {seed} for {REPEAT_EPOCHS} epochs gave the same best and last "
+                "parameters and every epoch's metrics bit for bit")
+        profiled_in_child(phase, seed)
+    return counts
+
+
+def graph_phases(seed, root_dir):
+    """Phases 20-22. Returns the kernels' counts by path (all 0)."""
+    data = mf_split()
+    counts = serve_graph_checkpoints(root_dir, data)
+    counts.update(graph_training(seed, root_dir, data))
+    return counts
+
+
+def profile_phase(phase, seed):
+    """``--profile``: the profiled calls of one graph phase, in this process
+    alone. A profile without CUDA events prints a WARNING line."""
+
+    def report(what, text):
+        print(f"{phase}: {what}: {text}", flush=True)
+        if "not measured" in text:
+            print(f"WARNING: {phase}: the profiler recorded no CUDA events for {what}", flush=True)
+
+    data = mf_split()
+    with tempfile.TemporaryDirectory() as root_dir:
+        if phase == "graph-serve":
+            for name, (cls, _, _) in GRAPH_FAMILY.items():
+                path = graph_checkpoint(name)
+                rec = cls(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
+                rec.test()
+                rec.recommend(k=10)
+                report(f"{name} test()", device_breakdown(rec.test))
+                report(f"{name} recommend()", device_breakdown(lambda: rec.recommend(k=10)))
+            return
+        name = {"lightgcn-train": "LightGCN", "ngcf-train": "NGCF"}[phase]
+        rec = GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, max_epoch=1))
+        rec.train(data)  # one epoch to warm up
+        trainer = rec.engine.epoch_fn
+        report("one epoch", device_breakdown(lambda: float(trainer.run(rec.engine.generator)), top=8,
+                                             steps=trainer.num_batches))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1688,9 +1976,15 @@ def main():
                         help="run only the ring kernel and the sharded MF phases (11-16)")
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
+    parser.add_argument("--profile", choices=["graph-serve", "lightgcn-train", "ngcf-train"],
+                        help="profile one graph phase in this process alone (phases 20-22 run it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
+    if args.profile:
+        fp32_matmuls()
+        profile_phase(args.profile, args.seed)
+        return 0
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1779,6 +2073,7 @@ def main():
         f"{len(ml1m.train[DEFAULT_USER_COL])} train rows ({time.perf_counter() - t0:.2f} s)")
     with tempfile.TemporaryDirectory() as root_dir:
         adam_launches = {"mf_sparse_train": mf_sparse_training(args.seed, root_dir)}
+        bwd_launches = {}
         mf_dense_training(args.seed, root_dir)
         serve_mf_checkpoint(root_dir)
         launches = {
@@ -1790,11 +2085,17 @@ def main():
         train_counts.update(sasrec_head_dims(args.seed, root_dir))
         ring_rows, ring_launches = sharded_phases(args.seed, root_dir)
         ncf_phases(args.seed, root_dir)
+        graph_counts = graph_phases(args.seed, root_dir)
+    for path, counts in graph_counts.items():  # every count 0 (check_no_kernel)
+        launches[path] = counts["flash_causal_attention_fwd"]
+        bwd_launches[path] = counts["flash_causal_attention_bwd"]
+        adam_launches[path] = counts["fused_rowadam"]
+        ring_launches[path] = counts["ring_allgather"]
     for path, counts in train_counts.items():
         launches[f"{path}/steps"] = counts["steps"]
         if "eval" in counts:
             launches[f"{path}/eval"] = counts["eval"]
-    bwd_launches = {path: counts["bwd"] for path, counts in train_counts.items()}
+    bwd_launches.update({path: counts["bwd"] for path, counts in train_counts.items()})
 
     main_row = rows[(1886, 100, torch.float32)]
     train_row = timed_train[(256, 100, 32, DROPOUT_RATE)]

@@ -6,7 +6,8 @@ all-gather of one checkout of the port.
 
 Needs a GPU. Imports ``beta_recsys_tpu_torch`` from ``<checkout root>``
 (building its kernels there, in ``build/torch_kernels/``) and the timers of
-this checkout's ``chip_smoke.py``, and prints one JSON line: ``<label>``,
+``chip_smoke.py`` (the checkout's own where it holds one, else this
+checkout's), and prints one JSON line: ``<label>``,
 the card, and for each shape
 
 - ``device_ms``: the kernels' own time, calls back to back on the device
@@ -42,6 +43,8 @@ is named):
   epochs of 246 steps) and SASRec at the trained checkpoint's config (20
   epochs of 7 steps); examples/s or sequences/s of each epoch (host clock,
   ending in the epoch's loss read) and ``fused_rowadam`` launches a step;
+  and, with no kernel, the dense pairwise trainer (MF as shipped) and the
+  pointwise one (NCF as shipped), 6 epochs each, examples or positives/s;
 - ``ring``: the all-gather at n 4 x (C, 64) float32 for C 200, 800 and 8192,
   every rank on cuda:0;
 - ``across``: the same shapes with rank r on cuda:r, and
@@ -197,6 +200,10 @@ def epoch_rows(out):
         seq = SequentialData(load_split_data(cs.SPLIT, n_test=1))
         sas, _ = rates(cs.sasrec_config(0, root), seq, 20, lambda fn: fn.num_batches * fn.batch_size)
         out["sasrec-train epochs"] = {"sequences_per_s": sas}
+        dense, _ = rates(cs.mf_config(0, root), cs.mf_split(), 6, lambda fn: fn.padded_size)
+        out["mf-dense epochs"] = {"examples_per_s": dense}
+        ncf, _ = rates(cs.ncf_config("NCF", 0, root), cs.mf_split(), 6, lambda fn: fn.padded_size)
+        out["ncf-train epochs"] = {"positives_per_s": ncf}
 
 
 def ring_rows(out, gen, devices, key):

@@ -166,3 +166,28 @@ def test_ncf_config_is_the_shipped_config(name, emb_dim):
     assert (m.model, m.emb_dim, m.num_negative, m.batch_size, m.lr, m.max_n_update) == (name, emb_dim, 4, 400, 1e-3, 20)
     assert set(chip_smoke.NCF_BANDS[name]) == {"valid", "test"}
     assert os.path.isdir(os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.NCF_FAMILY[name][2]))
+
+
+@pytest.mark.parametrize("name,keep,lr", [("LightGCN", 0.6, 2.5e-4), ("NGCF", None, 0.01)])
+def test_graph_config_is_the_shipped_config(name, keep, lr):
+    cfg = chip_smoke.graph_config(name, 3, "/nowhere")
+    assert cfg.system.seed == 3 and cfg.system.root_dir == "/nowhere"
+    assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
+    m = cfg.model
+    assert (m.emb_dim, m.layer_size, m.batch_size, m.lr, m.max_n_update) == (64, [64, 64, 64], 1024, lr, 20)
+    assert m.get("keep_pro") == keep and chip_smoke.graph_config(name, 3, "/x", max_epoch=3).model.max_epoch == 3
+    band = chip_smoke.GRAPH_BANDS[name]
+    assert set(band) == {"valid", "test"} and all(0 < std < 0.02 for _, std in band.values())
+    assert os.path.isdir(chip_smoke.graph_checkpoint(name))
+
+
+def test_sparse_route_repeats_reports_each_product():
+    """On the CPU the CSR products repeat bit for bit: every difference 0."""
+    from beta_recsys_tpu_torch.ops.graph import pack_propagator
+
+    rng = np.random.default_rng(0)
+    pairs = np.unique(rng.integers(0, 30, (120, 2)), axis=0)
+    prop = pack_propagator(pairs[:, 0], pairs[:, 1], rng.uniform(size=len(pairs)), 30, fmt="chunked", device="cpu")
+    repeats = chip_smoke.sparse_route_repeats(prop, 0, d=8)
+    assert list(repeats) == ["A @ x", "A^T @ g", "A @ x (dropped edges)", "A^T @ g (dropped edges)"]
+    assert not any(repeats.values())

@@ -28,6 +28,8 @@ chip_smoke.sasrec_config(0, "unused", num_heads=1)
 chip_smoke.mesh_config(0, "unused", (1, 4))
 for name in chip_smoke.NCF_FAMILY:
     chip_smoke.ncf_config(name, 0, "unused")
+for name in chip_smoke.GRAPH_FAMILY:
+    chip_smoke.graph_config(name, 0, "unused", max_epoch=1)
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather
 make_mesh(1, 4, ["cpu"] * 4)
@@ -81,3 +83,19 @@ def test_ncf_family_recommenders_default_to_cuda(monkeypatch, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cls(config)
     assert cls(config, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["LightGCN", "NGCF"])
+def test_graph_recommenders_and_propagators_default_to_cuda(monkeypatch, name):
+    from beta_recsys_tpu_torch import recommenders
+    from beta_recsys_tpu_torch.ops.graph import pack_propagator
+
+    cls = getattr(recommenders, name)
+    config = {"model": {"model": cls.model_name}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(config)
+    assert cls(config, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_propagator([0], [1], [1.0], 2)
+    assert pack_propagator([0], [1], [1.0], 2, device="cpu").dense.device == torch.device("cpu")

@@ -222,7 +222,7 @@ def test_trainer_fused_route_makes_one_grouped_call_a_step():
     step, checked once when the trainer is built; the 1-D bias tables take
     ``sparse_adam_row_update``. On the CPU the call takes the plain version
     and launches nothing."""
-    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cpu")
+    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cpu").init_weights(torch.Generator().manual_seed(0))
     arrays = types.SimpleNamespace(users=np.arange(10), items=np.arange(10))
     trainer = SparseEpochTrainer(model, arrays, 4, None, 0.05, None, row_update="fused")
     trainer.dense_optimizer = torch.optim.Adam(list(trainer.dense.values()), lr=0.05)

@@ -129,7 +129,7 @@ def test_cuda_segment_dedup_repeats_bit_for_bit():
 def test_cuda_auto_row_update_takes_the_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cuda")
+    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cuda").init_weights(torch.Generator().manual_seed(0))
     arrays = types.SimpleNamespace(users=np.arange(10), items=np.arange(10))
     trainer = SparseEpochTrainer(model, arrays, 4, None, 0.05, None, row_update="auto")
     assert trainer.row_update == "fused"

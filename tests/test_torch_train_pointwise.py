@@ -230,6 +230,18 @@ def test_mesh_and_multineg_batches_raise(split, tmp_path):
         make_epoch_fn(types.SimpleNamespace(batch_kind="multineg"), None, data.train_arrays(), BATCH, None)
 
 
+def test_neucf_takes_mesh_devices_and_its_mesh_raises(split, tmp_path):
+    """NeuCF passes ``mesh_devices`` on to the base class, as every other
+    recommender does; on a (2, 2) mesh the pointwise path raises, citing
+    ROADMAP.md's item 8."""
+    data, _ = _both_data(split)
+    cfg = Config(_config(tmp_path, "NCF")).replace(system={"mesh": {"data": 2, "model": 2}})
+    rec = NeuCF(cfg, device="cpu", mesh_devices=["cpu"] * 4)
+    assert rec.mesh_devices == ["cpu"] * 4
+    with pytest.raises(NotImplementedError, match="section 1 item 8"):
+        rec.train(data)
+
+
 RECOMMENDERS = {"GMF": (GMFRecommender, JaxGMFRecommender), "MLP": (MLPRecommender, JaxMLPRecommender),
                 "NCF": (NeuCF, JaxNeuCF)}
 
