@@ -18,9 +18,10 @@ as a list or as a dict keyed "0", "1", ..., like SASRec's ``blocks``),
 (``user_emb``, ``item_emb``) and NGCF (also its ``gc`` and ``bi`` lists of
 {w, b}, weights (in, out), as a list or keyed "0", "1", ...), and
 ``params_to_jax`` is the inverse of all of them: the tree the JAX package's
-``from_state_dict`` restores, as float32 numpy arrays. ``flatten_params``
-also takes a tree whose leaves are tensors (a ``state_dict`` nested by
-``nest_dotted``), on any device.
+``from_state_dict`` restores, as float32 numpy arrays. ``flatten_params``,
+which they all are, serves the later models as it is (PairwiseGMF, CMN with
+its ``hop_maps`` list, UltraGCN, MixGCF); it also takes a tree whose leaves
+are tensors (a ``state_dict`` nested by ``nest_dotted``), on any device.
 """
 
 import numpy as np
@@ -75,6 +76,10 @@ def lightgcn_params_from_jax(params):
 def ngcf_params_from_jax(params):
     """{dotted name: float32 tensor} for ``NGCF.load_state_dict``."""
     return flatten_params(params)
+
+
+
+
 
 
 def nest_dotted(flat):

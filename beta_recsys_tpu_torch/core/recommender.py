@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import Config, load_config
+from ..convert import flatten_params
 from ..data.base_data import BaseData
 from ..device import fp32_matmuls, resolve_device
 from ..models import build_model
@@ -58,10 +59,8 @@ class Recommender:
         recommenders extend each user's context with validation items."""
         return self.model
 
-    @staticmethod
-    def params_from_jax(params):
-        """The model's state_dict from a JAX params tree (``convert.py``)."""
-        raise NotImplementedError
+    # The model's state_dict from a JAX params tree (``convert.py``).
+    params_from_jax = staticmethod(flatten_params)
 
     # -- API -----------------------------------------------------------------------
 

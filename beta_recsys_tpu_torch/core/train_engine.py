@@ -1,9 +1,10 @@
 """Training engine: epoch trainers, early stop and checkpoints.
 
 Counterpart of ``beta_recsys_tpu/core/train_engine.py`` on one device for the
-pairwise (BPR), pointwise (BCE) and sequence (SASRec) batch kinds:
-``make_optimizer``, ``make_negative_sampler``, ``_padded_order``, the dense
-pairwise and pointwise trainers (``make_epoch_fn``), the sequence trainer
+pairwise (BPR), multineg (``num_neg`` negatives a positive), pointwise (BCE)
+and sequence (SASRec) batch kinds: ``make_optimizer`` (optax's sgd, adam and
+rmsprop), ``make_negative_sampler``, ``_padded_order``, the dense pairwise,
+multineg and pointwise trainers (``make_epoch_fn``), the sequence trainer
 (``SequenceEpochTrainer``, the counterpart of ``make_sequence_epoch_fn``)
 and ``TrainEngine`` (``build``, ``train``, ``save_checkpoint``). Models
 with a row protocol and ``"sparse_optim": true`` train through the
@@ -49,9 +50,61 @@ _BITMASK_CELL_LIMIT = 64 * 1024 * 1024
 AUTO_SPARSE_TABLE_BYTES = 8 * 1024 * 1024
 
 
+# optax.rmsprop's defaults, which the JAX package keeps.
+RMSPROP_DECAY = 0.9
+RMSPROP_EPS = 1e-8
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)`` at its defaults: nu <- 0.9 * nu + 0.1 * g^2
+    from nu = 0, then p <- p - lr * g / sqrt(nu + 1e-8), eps inside the
+    root; no momentum, no centring, no bias correction. ``torch.optim
+    .RMSprop`` is another formula (alpha 0.99, eps outside the root). A
+    parameter without a gradient steps as optax steps a zero gradient. The
+    state of a parameter is ``{"nu": tensor}``, optax's ``ScaleByRmsState``."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, {"lr": lr})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params, grads, nus = [], [], []
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                if p.grad is None:  # optax's zero gradient: nu decays, p stays
+                    state["nu"].mul_(RMSPROP_DECAY)
+                    continue
+                params.append(p)
+                grads.append(p.grad)
+                nus.append(state["nu"])
+            if not params:
+                continue
+            # optax's order of operations, so the roundings are its own; one
+            # launch an operation for every parameter of the group.
+            torch._foreach_mul_(nus, RMSPROP_DECAY)
+            squares = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(squares, 1 - RMSPROP_DECAY)
+            torch._foreach_add_(nus, squares)
+            steps = torch._foreach_add(nus, RMSPROP_EPS)
+            torch._foreach_rsqrt_(steps)
+            torch._foreach_mul_(steps, grads)
+            torch._foreach_mul_(steps, -group["lr"])
+            torch._foreach_add_(params, steps)
+        return loss
+
+
 def make_optimizer(model_cfg, params):
-    """sgd or adam over ``params``; optax's adam is torch's Adam with
-    betas (0.9, 0.999) and eps 1e-8."""
+    """sgd, adam or rmsprop over ``params``, as optax gives them: optax's
+    adam is torch's Adam with betas (0.9, 0.999) and eps 1e-8; its rmsprop
+    is ``OptaxRMSprop``. As in the JAX package, a config's ``momentum`` and
+    ``grad_clip`` are not read."""
     name = model_cfg.get("optimizer", "adam")
     lr = float(model_cfg.get("lr", 1e-3))
     if name == "sgd":
@@ -59,10 +112,7 @@ def make_optimizer(model_cfg, params):
     if name == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "rmsprop":
-        raise NotImplementedError(
-            "rmsprop: torch's RMSprop is not optax's; it waits to be written to optax's "
-            "formula (ROADMAP.md, section 1 item 2, the rest of MF training)"
-        )
+        return OptaxRMSprop(params, lr=lr)
     raise ValueError(f"Unknown optimizer {name}")
 
 
@@ -100,12 +150,14 @@ def _padded_order(perm, padded_size):
 
 
 class EpochBatches:
-    """An epoch's pairwise batches formed at once, then a step loop over them.
-    Subclasses define ``step(users, pos, neg, generator) -> 0-d loss
-    tensor``; each step draws its dropout, if the model has any, from the
-    epoch's generator."""
+    """An epoch's pairwise or multineg batches formed at once, then a step
+    loop over them. Each positive gets negatives of shape ``neg_shape``: ()
+    one (pairwise), (num_neg,) for a multineg batch, rejected against the
+    positive's user. Subclasses define ``step(users, pos, neg, generator) ->
+    0-d loss tensor``; each step draws its dropout, if the model has any,
+    from the epoch's generator."""
 
-    def __init__(self, train_arrays, batch_size, neg_sampler, device):
+    def __init__(self, train_arrays, batch_size, neg_sampler, device, neg_shape=()):
         self.device = torch.device(device)
         self.users = torch.as_tensor(train_arrays.users, dtype=torch.long, device=self.device)
         self.items = torch.as_tensor(train_arrays.items, dtype=torch.long, device=self.device)
@@ -116,23 +168,26 @@ class EpochBatches:
         self.num_batches = -(-self.n // self.batch_size)
         self.padded_size = self.num_batches * self.batch_size
         self.neg_sampler = neg_sampler
+        self.neg_shape = tuple(neg_shape)
 
     def form(self, generator):
-        """(users, pos, neg), each (num_batches, batch_size), on the device."""
+        """(users, pos, neg): (num_batches, batch_size) and (num_batches,
+        batch_size, *neg_shape), on the device."""
         perm = torch.randperm(self.n, generator=generator, device=self.device)
         order = _padded_order(perm, self.padded_size)
         users, pos = self.users[order], self.items[order]
-        neg = self.neg_sampler(generator, users, (self.padded_size,))
+        owners = users.view(-1, *(1,) * len(self.neg_shape))
+        neg = self.neg_sampler(generator, owners, (self.padded_size, *self.neg_shape))
         shape = (self.num_batches, self.batch_size)
-        return users.view(shape), pos.view(shape), neg.view(shape)
+        return users.view(shape), pos.view(shape), neg.view(*shape, *self.neg_shape)
 
     def run(self, generator):
         """Form this epoch's batches and train on them; the mean batch loss."""
         return self.run_batches(*self.form(generator), generator=generator)
 
     def run_batches(self, users, pos, neg, generator=None):
-        """Train on (num_batches, B) id arrays; the mean batch loss as a 0-d
-        device tensor."""
+        """Train on (num_batches, B) users and positives and (num_batches, B,
+        *neg_shape) negatives; the mean batch loss as a 0-d device tensor."""
         users, pos, neg = (torch.as_tensor(x, dtype=torch.long, device=self.device) for x in (users, pos, neg))
         total = torch.zeros((), device=self.device)
         for b in range(users.shape[0]):
@@ -144,10 +199,13 @@ class EpochBatches:
 
 
 class DenseEpochTrainer(EpochBatches):
-    """Every parameter updates through ``optimizer`` from ``model.loss``."""
+    """Every parameter updates through ``optimizer`` from ``model.loss`` on
+    pairwise batches, or multineg ones with ``neg_shape`` (num_neg,): the
+    ``"pairwise"`` and ``"multineg"`` branches of the JAX ``make_epoch_fn``,
+    whose batch is {"users", "pos_items", "neg_items"} either way."""
 
-    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler):
-        super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device)
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, neg_shape=()):
+        super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device, neg_shape)
         self.model = model
         self.optimizer = optimizer
 
@@ -217,17 +275,16 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
 
 
 def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1):
-    """The dense whole-epoch trainer for the model's pairwise or pointwise
-    (``num_neg`` negatives a positive) batches."""
+    """The dense whole-epoch trainer for the model's pairwise, multineg or
+    pointwise batches (the last two with ``num_neg`` negatives a positive)."""
     kind = model.batch_kind
     if kind == "pairwise":
         return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+    if kind == "multineg":
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, (int(num_neg),))
     if kind == "pointwise":
         return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg)
-    raise NotImplementedError(
-        f"batch kind {kind!r}: the port trains pairwise (BPR), pointwise (BCE) and sequence batches so far; "
-        "multineg batches are ROADMAP.md, section 1 item 2 (the rest of MF training)"
-    )
+    raise ValueError(f"make_epoch_fn handles pairwise/pointwise/multineg; got {kind}")
 
 
 class SequenceEpochTrainer:
@@ -485,12 +542,19 @@ class TrainEngine:
     def _opt_state_tree(self):
         """The optimizer state in the layout of the JAX package's dense optax
         state for this config ({"0": {"count", "mu", "nu"}, "1": {}} for adam,
-        {"0": {}, "1": {}} for sgd): the table moments of the lazy-Adam
-        trainer and Adam's state of the other parameters, nested like the
+        {"0": {"nu"}, "1": {}, "2": {}} for rmsprop (optax 0.2's chain of
+        ``scale_by_rms``, an identity and the learning rate), {"0": {}, "1":
+        {}} for sgd): the table moments of the lazy-Adam trainer and Adam's
+        or rmsprop's state of the other parameters, nested like the
         params tree (``blocks.0.attn.wq`` -> {"blocks": {"0": {"attn":
         {"wq": ...}}}}; MF's names are flat), so the JAX package's cold
         ``load`` finds the structure it expects."""
-        if self.config.model.get("optimizer", "adam") != "adam":
+        optimizer = self.config.model.get("optimizer", "adam")
+        if optimizer == "rmsprop":  # a parameter no step has reached keeps optax's initial 0
+            nu = {name: self.optimizer.state[p]["nu"].cpu().numpy() if self.optimizer.state.get(p)
+                  else np.zeros(tuple(p.shape), np.float32) for name, p in self.model.named_parameters()}
+            return {"0": {"nu": nest_dotted(nu)}, "1": {}, "2": {}}
+        if optimizer != "adam":
             return {"0": {}, "1": {}}
         names = {id(p): name for name, p in self.model.named_parameters()}
         mu, nu, count = {}, {}, 0

@@ -11,7 +11,8 @@ place of pandas. It keeps the reference's semantics exactly:
 
 The graph artifacts (``create_adj_mat``, ``get_adj_mat``, ``get_norm_adj``)
 are the JAX package's scipy constructions over the (users + items) node
-graph, with the same arrays in the same order.
+graph, with the same arrays in the same order; ``create_constraint_mat`` is
+UltraGCN's degree vectors, as the JAX package computes them.
 """
 
 import os
@@ -232,6 +233,21 @@ class BaseData:
         else:
             raise ValueError(f"Unknown variant {variant}")
         return adj.row.astype(np.int32), adj.col.astype(np.int32), vals.astype(np.float32)
+
+    def create_constraint_mat(self):
+        """UltraGCN's (train_mat, beta_uD, beta_iD): the binarized user x item
+        CSR, sqrt(d_u + 1) / d_u (0 for a user of degree 0) and 1 / sqrt(d_i
+        + 1), float32 (JAX ``create_constraint_mat``,
+        ``data/base_data.py:368-382``)."""
+        train_mat = self.user_item_csr()
+        train_mat.data[:] = 1.0
+        items_d = np.asarray(train_mat.sum(axis=0)).flatten()
+        users_d = np.asarray(train_mat.sum(axis=1)).flatten()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            beta_ud = np.sqrt(users_d + 1) / users_d
+        beta_ud[~np.isfinite(beta_ud)] = 0.0
+        beta_id = 1.0 / np.sqrt(items_d + 1)
+        return train_mat, beta_ud.astype(np.float32), beta_id.astype(np.float32)
 
 
 def _row_normalize(adj):

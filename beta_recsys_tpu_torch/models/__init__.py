@@ -1,15 +1,20 @@
+from .cmn import CMN
 from .gmf import GMF
 from .lightgcn import LightGCN
 from .mf import MF
+from .mixgcf import MixGCF
 from .mlp import MLP
 from .ncf import NeuMF
 from .ngcf import NGCF
+from .pairwise_gmf import PairwiseGMF
 from .sasrec import SASRec
+from .ultragcn import UltraGCN
 
 # The JAX registry's names for the ported models (beta_recsys_tpu/models/__init__.py).
 MODELS = {
     "MF": MF, "GMF": GMF, "MLP": MLP, "NCF": NeuMF, "NeuMF": NeuMF, "ncf": NeuMF, "SASRec": SASRec,
-    "LightGCN": LightGCN, "lightgcn": LightGCN, "NGCF": NGCF, "ngcf": NGCF,
+    "LightGCN": LightGCN, "lightgcn": LightGCN, "NGCF": NGCF, "ngcf": NGCF, "PairwiseGMF": PairwiseGMF,
+    "CMN": CMN, "cmn": CMN, "UltraGCN": UltraGCN, "ultragcn": UltraGCN, "MixGCF": MixGCF, "mixgcf": MixGCF,
 }
 
 

@@ -20,12 +20,24 @@ from .base import RecModel
 from .losses import bce_loss
 
 
-def lecun_normal_(tensor, generator):
-    """LeCun normal over an (in, out) weight, as ``jax.nn.initializers
-    .lecun_normal`` draws it: a normal truncated at +-2 std, scaled so the
-    variance is 1 / fan_in."""
-    std = math.sqrt(1.0 / tensor.shape[-2]) / 0.87962566103423978
+def _fan_in_truncated_normal_(tensor, scale, generator):
+    """``jax.nn.initializers.variance_scaling(scale, "fan_in",
+    "truncated_normal")`` over an (in, out) weight: a normal truncated at +-2
+    std, scaled so the variance is scale / fan_in."""
+    std = math.sqrt(scale / tensor.shape[-2]) / 0.87962566103423978
     return nn.init.trunc_normal_(tensor, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def lecun_normal_(tensor, generator):
+    """LeCun normal, as ``jax.nn.initializers.lecun_normal`` draws it:
+    variance 1 / fan_in."""
+    return _fan_in_truncated_normal_(tensor, 1.0, generator)
+
+
+def he_normal_(tensor, generator):
+    """He normal, as ``jax.nn.initializers.he_normal`` draws it: variance 2 /
+    fan_in (``nn.init.kaiming_normal_`` is not truncated)."""
+    return _fan_in_truncated_normal_(tensor, 2.0, generator)
 
 
 def dense(n_in, n_out, device):

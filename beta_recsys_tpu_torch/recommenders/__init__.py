@@ -1,7 +1,8 @@
 """User-facing recommender wrappers, one per model family.
 
 Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
-NeuMF, LightGCN, NGCF and SASRec are ported so far.
+NeuMF, LightGCN, NGCF, PairwiseGMF, CMN, UltraGCN, MixGCF and SASRec are
+ported so far.
 """
 
 from ..convert import (
@@ -15,6 +16,8 @@ from ..convert import (
 )
 from ..core.recommender import Recommender
 from ..data.sequential_data import SequentialData
+from ..models.cmn import build_item_neighborhoods
+from ..ops.ultragcn_prep import get_ii_constraint_mat
 
 
 class MatrixFactorization(Recommender):
@@ -77,6 +80,53 @@ class NGCF(Recommender):
 
     def build_artifacts(self, data):
         return {"adj": data.get_norm_adj("row")}
+
+
+class PairwiseGMFRecommender(Recommender):
+    """PairwiseGMF with BPR; its memories warm-start CMN."""
+
+    model_name = "PairwiseGMF"
+
+
+class CMN(Recommender):
+    """CMN, optionally warm-started from a PairwiseGMF's memories:
+    ``user_embeddings`` and ``item_embeddings`` (arrays or tensors, e.g.
+    ``rec.model.user_memory`` of a trained ``PairwiseGMFRecommender``)
+    become the initial ``user_memory`` and ``item_memory`` bit for bit.
+    Each item attends over its training users (``build_item_neighborhoods``)."""
+
+    model_name = "CMN"
+
+    def __init__(self, config, user_embeddings=None, item_embeddings=None, device=None, mesh_devices=None):
+        super().__init__(config, device, mesh_devices)
+        self._pretrained = {"user_embeddings": user_embeddings, "item_embeddings": item_embeddings}
+
+    def build_artifacts(self, data):
+        nb, nb_len = build_item_neighborhoods(data.user_item_csr())
+        return {"item_neighbors": nb, "item_nb_len": nb_len,
+                **{k: v for k, v in self._pretrained.items() if v is not None}}
+
+
+class UltraGCN(Recommender):
+    """UltraGCN on multineg batches, with its degree vectors and item-item
+    neighbours computed on the host from the train split."""
+
+    model_name = "UltraGCN"
+
+    def build_artifacts(self, data):
+        train_mat, beta_ud, beta_id = data.create_constraint_mat()
+        nb, sims = get_ii_constraint_mat(train_mat, int(self.config.model.get("ii_neighbor_num", 10)))
+        return {"constraint": (beta_ud, beta_id), "ii_neighbors": nb, "ii_sims": sims}
+
+
+class MixGCF(Recommender):
+    """MixGCF over the symmetric-normalized interaction graph D^-1/2 A D^-1/2,
+    on multineg batches of K * n_negs candidates a positive."""
+
+    model_name = "MixGCF"
+
+    def build_artifacts(self, data):
+        return {"adj": data.get_norm_adj("sym")}
 
 
 class SASRec(Recommender):

@@ -60,9 +60,11 @@ Phases, each printed with the seconds elapsed:
      negatives a positive, batch 400, Adam at lr 1e-3) on the structured
      split through XRecommender(cfg).train(data), seed 0, to early stop:
      best valid and test ndcg@10 inside the JAX package's ten-seed bands,
-     NCF trained twice bit for bit; examples/s and one profiled epoch each;
+     NCF's first 3 epochs twice, bit for bit; examples/s and a profiled
+     window each (an epoch's batch forming and 50 steps);
  19. NCF warm-started from phase 18's MLP and a GMF trained as in phase 18
-     at NCF's width (emb 8; the shipped GMF is 64 wide): it starts from
+     at NCF's width (emb 8; the shipped GMF is 64 wide) for 20 epochs, for
+     5 epochs (neither holds a band): NCF starts from
      their tables and layers bit for bit; its metrics are printed. Phases
      17-19 launch none of the kernels (every count read 0 around each);
  20. serve the JAX-trained seed-0 LightGCN and NGCF checkpoints: load ->
@@ -80,14 +82,35 @@ Phases, each printed with the seconds elapsed:
      test() and a recommend() of each checkpoint; one epoch of each model)
      in a process of its own (``--profile``), printing a WARNING where the
      profiler recorded no CUDA events;
- 23. a JSON line of every kernel with its launches on each path, counted
+ 23. serve the JAX-trained seed-0 UltraGCN checkpoint: load -> test() ->
+     predict() -> recommend(k=10); test() reproduces the JAX package's
+     metrics to 1e-4, predict() the port's on the CPU to 1e-6, the top-10
+     lists equal the CPU's for every user; users/s of test() and
+     recommend();
+ 24. train UltraGCN (multineg batches of 50 negatives, 10 epochs) and MixGCF
+     (16 candidates mixed into one negative, edge and message dropout, 5
+     epochs) at their shipped configs through XRecommender(cfg).train(data),
+     seed 0: best valid and test ndcg@10 inside the JAX package's ten-seed
+     bands at the same caps; UltraGCN's first 3 epochs twice, bit for bit;
+ 25. train PairwiseGMF (5 epochs), then CMN (rmsprop, 3 epochs)
+     warm-started from its memories, at their shipped configs: both inside
+     the JAX bands at those caps (each JAX seed's CMN starts from that
+     seed's PairwiseGMF); CMN starts from the memories bit for bit, its
+     first 5 steps equal the same steps through the port on the CPU (1e-5:
+     the loss, every parameter, rmsprop's nu), its first 2 epochs twice bit
+     for bit, and the peak device memory of its test() (scored in blocks of
+     pairs). Phases 23-25 launch none of the kernels and profile in one
+     child process (``--profile capped-models``: UltraGCN's test() and
+     recommend(), an epoch's batch forming and 20 steps of each model after
+     5 to warm up, and CMN's test()); positives/s of every training;
+ 26. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
-drives no path); with --profile <phase>, only that graph phase's profiles
-and no result line. Imports nothing of JAX or of the JAX package.
+drives no path); with --profile <phase>, only that graph phase's (or
+phases 23-25's) profiles and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -107,6 +130,7 @@ sys.path.insert(0, REPO)
 
 from beta_recsys_tpu_torch.config import load_config  # noqa: E402
 from beta_recsys_tpu_torch.convert import (  # noqa: E402
+    flatten_params,
     lightgcn_params_from_jax,
     ncf_params_from_jax,
     nest_dotted,
@@ -147,13 +171,17 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
+    CMN,
     NGCF,
     GMFRecommender,
     LightGCN,
     MatrixFactorization,
+    MixGCF,
     MLPRecommender,
     NeuCF,
+    PairwiseGMFRecommender,
     SASRec,
+    UltraGCN,
 )
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
     DEFAULT_ITEM_COL,
@@ -253,7 +281,8 @@ MESH_CAPACITY_FACTOR = 4.0
 # CPU: 1.2e-5, 1.5e-4, 9.8e-4 for parameters, 1.0e-5, 1.3e-4, 1.2e-3 for
 # moments). Each epoch's loss to 1e-5 relative.
 MESH_TOL = (1e-4, 1e-3, 1e-2)
-PROFILED_STEPS = 10  # sharded steps under torch.profiler
+PROFILED_STEPS = 3  # sharded steps under torch.profiler (~2,500 device activities each)
+PROFILED_WINDOW = 50  # one-device training steps under torch.profiler
 # The NCF family: each model's recommender, shipped config and JAX-trained
 # seed-0 checkpoint.
 NCF_FAMILY = {
@@ -280,6 +309,8 @@ NCF_BANDS = {
     "NCF": {"valid": (0.15180849134922028, 0.004850082781757105),
             "test": (0.12909825518727303, 0.005508611261360261)},
 }
+GMF_PRETRAIN_EPOCHS = 20  # phase 19's GMF at NCF's width
+NCF_WARM_EPOCHS = 5  # phase 19's warm-started NeuMF
 # The graph models: each recommender, shipped config and JAX-trained seed-0
 # checkpoint.
 GRAPH_FAMILY = {
@@ -304,7 +335,42 @@ GRAPH_BANDS = {
 }
 SPARSE_ROUTE_TOL = 1e-5  # test() through the CSR route against the dense route's
 PREDICT_TOL = 1e-6  # served scores on the card against the port's on the CPU
-REPEAT_EPOCHS = 3  # LightGCN's epochs trained twice, bit for bit
+REPEAT_EPOCHS = 3  # NCF's, LightGCN's and UltraGCN's epochs trained twice, bit for bit
+# The multineg models and the memory network: each recommender, shipped
+# config and the epochs its training runs (the cap its JAX band is read at).
+CAPPED_FAMILY = {
+    "UltraGCN": (UltraGCN, "configs/ultragcn_default.json", 10),
+    "MixGCF": (MixGCF, "configs/mixgcf_default.json", 5),
+    "PairwiseGMF": (PairwiseGMFRecommender, "configs/pairwise_gmf_default.json", 5),
+    "CMN": (CMN, "configs/cmn_default.json", 3),
+}
+ULTRAGCN_CHECKPOINT = "UltraGCN_default_20260821_135306_yybcvt"
+# The JAX package's UltraGCN(...).load(checkpoint, data).test() on the
+# structured split (tests/test_torch_serving_ultragcn.py holds the same values).
+EXPECTED_ULTRAGCN_METRICS = {"ndcg@10": 0.037329, "recall@10": 0.080594, "precision@10": 0.008059,
+                             "map@10": 0.024440}
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's training at each shipped config on the structured split, capped
+# at CAPPED_FAMILY's epochs, CMN warm-started from that seed's PairwiseGMF:
+# `JAX_PLATFORMS=cpu python port_tools/jax_ultragcn_band.py` and
+# `port_tools/jax_cmn_band.py`. A port run must land within mean +- 3 std.
+CAPPED_BANDS = {
+    "UltraGCN": {"valid": (0.038037513568997386, 0.0007387423680386935),
+                 "test": (0.03627822436392307, 0.0008663013204134607)},
+    "MixGCF": {"valid": (0.20632761418819429, 0.0017986793150566777),
+               "test": (0.18469276428222656, 0.0022821446442919785)},
+    "PairwiseGMF": {"valid": (0.15015765726566316, 0.011623411276760857),
+                    "test": (0.13211882933974267, 0.011198002172033119)},
+    "CMN": {"valid": (0.13177550993859768, 0.05672324844704675),
+            "test": (0.11733343806117773, 0.04854873012141583)},
+}
+CMN_REPEAT_EPOCHS = 2  # CMN's epochs trained twice, bit for bit
+# CMN's first steps at the shipped width on the card against the same steps
+# through the port on the CPU (which tests/test_torch_train_multineg.py holds
+# to the JAX package at that width): the band above is too wide to fail an
+# untrained CMN, so this is the check that can.
+CMN_CPU_STEPS = 5
+CMN_CPU_TOL = 1e-5  # |d| of each step's loss, every parameter and rmsprop's nu
 
 T0 = time.perf_counter()
 
@@ -435,6 +501,19 @@ def device_breakdown(fn, top=5, kernel=None, steps=None):
     return (f"profiled wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms "
             f"({100 * busy_us / wall_us:.1f}%, idle {100 - 100 * busy_us / wall_us:.1f}%) in {n_ops} "
             f"device activities{per_step}; top: {tops}{mine}")
+
+
+def profile_window(trainer, generator, steps=PROFILED_WINDOW, **kwargs):
+    """``device_breakdown`` of forming an epoch's batches (its permutation and
+    its whole draw of negatives) and training its first ``steps`` steps (the
+    profiler takes ~0.5 ms of host time to read each device activity: a
+    whole epoch of mf-sparse, 64,000 of them, took 32 s)."""
+
+    def window():
+        batches = [x[:steps] for x in trainer.form(generator)]
+        return float(trainer.run_batches(*batches, generator=generator))
+
+    return device_breakdown(window, steps=min(steps, trainer.num_batches), **kwargs)
 
 
 def attention_bound(n, t, dh, dtype):
@@ -797,8 +876,8 @@ def mf_sparse_training(seed, root_dir):
     log("mf-sparse", in_band("best valid ndcg@10", result["valid_metric"], SPARSE_BAND["valid"]) + "; "
         + in_band("test ndcg@10", res["ndcg@10"], SPARSE_BAND["test"]))
     check_mf_serving("mf-sparse", rec)
-    log("mf-sparse", "one epoch: " + device_breakdown(
-        lambda: rec.engine.epoch_fn.run(rec.engine.generator), top=8, kernel="rowadam_kernel"))
+    log("mf-sparse", f"{PROFILED_WINDOW} steps: " + profile_window(rec.engine.epoch_fn, rec.engine.generator, top=8,
+                                                                    kernel="rowadam_kernel"))
     return launches
 
 
@@ -1580,13 +1659,18 @@ def check_no_kernel(path):
     return counts
 
 
-def ncf_config(name, seed, root_dir):
-    """The model's shipped config on the structured synthetic split, one
+def shipped_config(path, seed, root_dir, **model):
+    """The shipped config at ``path`` on the structured synthetic split, one
     evaluation copy, as the JAX package's parity runs train it."""
-    return load_config(os.path.join(REPO, NCF_FAMILY[name][1])).replace(
+    return load_config(os.path.join(REPO, path)).replace(
         system={"root_dir": root_dir, "seed": seed},
         dataset={"dataset": "synthetic_structured", "n_test": 1},
+        model=model,
     )
+
+
+def ncf_config(name, seed, root_dir):
+    return shipped_config(NCF_FAMILY[name][1], seed, root_dir)
 
 
 def serve_ncf_checkpoints(root_dir):
@@ -1670,23 +1754,13 @@ def train_ncf_family(seed, root_dir, data):
         log(phase, in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
             + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
         check_mf_serving(phase, rec)
-        log(phase, "one more epoch: " + device_breakdown(
-            lambda: float(rec.engine.epoch_fn.run(rec.engine.generator)), top=8))
+        log(phase, f"{PROFILED_WINDOW} more steps: " + profile_window(rec.engine.epoch_fn, rec.engine.generator,
+                                                                        top=8))
         rec.model.load_trimmed(rec.params_from_jax(rec.engine.load_params()))  # the best again
         out[name] = (rec, result)
-    rec, result = out["NCF"]
-    again, again_result, _ = train_pointwise("NCF", "ncf-train-again", seed, root_dir, data)
-    last = [ncf_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
-            for r in (result, again_result)]
-    best = [r.model.state_dict() for r in (rec, again)]
-    same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
-            and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
-            and (result["best_epoch"], result["valid_metric"]) == (again_result["best_epoch"],
-                                                                   again_result["valid_metric"]))
-    if not same:
-        fail("two NCF trainings of one seed gave different parameters")
-    log("ncf-train", f"a second training of seed {seed} gave the same best and last parameters bit for bit "
-        f"(best epoch {result['best_epoch']}, valid ndcg@10 {result['valid_metric']:.6f})")
+    repeats_bit_for_bit("NCF", "ncf-train", seed, REPEAT_EPOCHS, lambda p, epochs: (*train_pointwise(
+        "NCF", p, seed, root_dir, data, NeuCF(ncf_config("NCF", seed, root_dir).replace(model={"max_epoch": epochs}))),
+        None), ncf_params_from_jax)
     return out["MLP"][0]
 
 
@@ -1696,8 +1770,12 @@ def warm_started_ncf(seed, root_dir, data, mlp):
     (NeuMF's GMF tower is emb_dim wide, as in the reference's pretraining).
     The weights training starts from are read as ``init_weights`` leaves
     them."""
-    cfg = ncf_config("NCF", seed, root_dir)
-    gmf_cfg = ncf_config("GMF", seed, root_dir).replace(model={"emb_dim": cfg.model.emb_dim})
+    # Neither training holds a band: the pretraining is capped at
+    # GMF_PRETRAIN_EPOCHS (it ran 103 epochs to early stop) and NeuMF at
+    # NCF_WARM_EPOCHS (its best epoch was 3 of 24) to keep the script's time.
+    cfg = ncf_config("NCF", seed, root_dir).replace(model={"max_epoch": NCF_WARM_EPOCHS})
+    gmf_cfg = ncf_config("GMF", seed, root_dir).replace(model={"emb_dim": cfg.model.emb_dim,
+                                                              "max_epoch": GMF_PRETRAIN_EPOCHS})
     gmf, _, _ = train_pointwise("GMF", "gmf-pretrain", seed, root_dir, data, GMFRecommender(gmf_cfg))
     gmf_params, mlp_params = (nest_dotted(r.model.state_dict()) for r in (gmf, mlp))
     rec = NeuCF(cfg, gmf_params=gmf_params, mlp_params=mlp_params)
@@ -1738,13 +1816,7 @@ def ncf_phases(seed, root_dir):
 
 
 def graph_config(name, seed, root_dir, **model):
-    """The model's shipped config on the structured synthetic split, one
-    evaluation copy, as the JAX package's parity runs train it."""
-    return load_config(os.path.join(REPO, GRAPH_FAMILY[name][1])).replace(
-        system={"root_dir": root_dir, "seed": seed},
-        dataset={"dataset": "synthetic_structured", "n_test": 1},
-        model=model,
-    )
+    return shipped_config(GRAPH_FAMILY[name][1], seed, root_dir, **model)
 
 
 def graph_checkpoint(name):
@@ -1880,27 +1952,49 @@ def serve_graph_checkpoints(root_dir, data):
     return counts
 
 
-def train_graph(name, phase, seed, root_dir, data, **model):
-    """Train ``name`` at its shipped config through XRecommender(cfg)
-    .train(data); returns the recommender, the train result, the test() row
-    and the kernels' counts around the path."""
-    rec = GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, **model))
+def train_dense(rec, phase, data):
+    """Train ``rec`` (a recommender on the dense pairwise or multineg
+    trainer) through rec.train(data); returns the recommender, the train
+    result, the test() row and the kernels' counts around the path."""
     zero_kernel_counts()
     result = rec.train(data)
     res = rec.test()
     counts = check_no_kernel(phase)
     engine = rec.engine
     trainer = engine.epoch_fn
+    negs = f" (x {trainer.neg_shape[0]} negatives)" if trainer.neg_shape else ""
     rates = [trainer.padded_size / s for s in engine.epoch_seconds]
-    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} positives, best epoch "
-        f"{result['best_epoch']}, train() {result['run_time']:.2f} s; positives/s per epoch: "
+    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} positives{negs}, best "
+        f"epoch {result['best_epoch']}, train() {result['run_time']:.2f} s; positives/s per epoch: "
         + ", ".join(f"{r:.0f}" for r in rates))
     if len(rates) > 1:
         log(phase, f"positives/s after the first epoch: median {np.median(rates[1:]):.1f}, "
             f"min {min(rates[1:]):.1f}, max {max(rates[1:]):.1f}")
     log(phase, f"best valid ndcg@10 {result['valid_metric']:.6f}; test() "
-        + ", ".join(f"{k} {res[k]:.6f}" for k in EXPECTED_GRAPH_METRICS[name]))
+        + ", ".join(f"{k} {res[k]:.6f}" for k in sorted(res) if k.endswith("@10")))
     return rec, result, res, counts
+
+
+def train_graph(name, phase, seed, root_dir, data, **model):
+    return train_dense(GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, **model)), phase, data)
+
+
+def repeats_bit_for_bit(name, phase, seed, epochs, train, params_from_jax):
+    """Two more trainings (``train(phase, max_epoch)``) of ``epochs`` epochs
+    of one seed give the same best and last parameters and every epoch's
+    metrics, bit for bit."""
+    runs = [train(f"{phase}-repeat", epochs) for _ in range(2)]
+    (first, first_result, _, _), (again, again_result, _, _) = runs
+    last = [params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
+            for r in (first_result, again_result)]
+    best = [r.model.state_dict() for r in (first, again)]
+    same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
+            and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
+            and first.engine.bookkeeper.history == again.engine.bookkeeper.history)
+    if not same:
+        fail(f"two {name} trainings of {epochs} epochs of one seed gave different parameters")
+    log(phase, f"two more trainings of seed {seed} for {epochs} epochs gave the same best and last parameters and "
+        "every epoch's metrics bit for bit")
 
 
 def graph_training(seed, root_dir, data):
@@ -1916,19 +2010,8 @@ def graph_training(seed, root_dir, data):
             + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
         check_graph_serving(phase, rec)
         if name == "LightGCN":
-            runs = [train_graph(name, f"{phase}-repeat", seed, root_dir, data, max_epoch=REPEAT_EPOCHS)
-                    for _ in range(2)]
-            (first, first_result, _, _), (again, again_result, _, _) = runs
-            last = [lightgcn_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
-                    for r in (first_result, again_result)]
-            best = [r.model.state_dict() for r in (first, again)]
-            same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
-                    and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
-                    and first.engine.bookkeeper.history == again.engine.bookkeeper.history)
-            if not same:
-                fail(f"two LightGCN trainings of {REPEAT_EPOCHS} epochs of one seed gave different parameters")
-            log(phase, f"two more trainings of seed {seed} for {REPEAT_EPOCHS} epochs gave the same best and last "
-                "parameters and every epoch's metrics bit for bit")
+            repeats_bit_for_bit(name, phase, seed, REPEAT_EPOCHS, lambda p, epochs: train_graph(
+                name, p, seed, root_dir, data, max_epoch=epochs), lightgcn_params_from_jax)
         profiled_in_child(phase, seed)
     return counts
 
@@ -1941,12 +2024,180 @@ def graph_phases(seed, root_dir):
     return counts
 
 
+# -- the multineg models and the memory network (phases 23-25) -------------------
+
+
+def capped_config(name, seed, root_dir, **model):
+    """The shipped config capped at its band's epochs (CAPPED_FAMILY)."""
+    return shipped_config(CAPPED_FAMILY[name][1], seed, root_dir, **{"max_epoch": CAPPED_FAMILY[name][2], **model})
+
+
+def serve_ultragcn_checkpoint(root_dir, data):
+    """Phase 23: the checkpoint's load, test(), predict() and recommend()
+    against the JAX package's metrics and the port on the CPU. Returns the
+    kernels' counts on the path."""
+    phase = "ultragcn-serve"
+    path = os.path.join(REPO, "parity_runs/checkpoints", ULTRAGCN_CHECKPOINT)
+    cfg = load_config(path).replace(system={"root_dir": root_dir})
+    zero_kernel_counts()
+    rec = UltraGCN(cfg).load(path, data)
+    res = rec.test()
+    for key, want in EXPECTED_ULTRAGCN_METRICS.items():
+        if abs(res[key] - want) > METRIC_TOL:
+            fail(f"UltraGCN checkpoint test() {key} = {res[key]:.6f}, expected {want} +- {METRIC_TOL}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    pairs = {c: data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+    scores = rec.predict(pairs)
+    k = 10
+    rec.recommend(k=k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = rec.recommend(k=k)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    check_recommendations(recs, data, k, data.n_users)
+    counts = check_no_kernel(phase)
+    plain = UltraGCN(cfg, device="cpu").load(path, data)
+    err = float(np.abs(scores - plain.predict(pairs)).max())
+    if err > PREDICT_TOL:
+        fail(f"{phase}: predict() differs from the CPU's by {err}")
+    if same_top_k(recs, plain.recommend(k=k), k):
+        fail(f"{phase}: the top-{k} lists differ from the CPU's")
+    n_eval = len(data.eval_candidates(data.test[0]).users)
+    log(phase, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_ULTRAGCN_METRICS)
+        + f" (expected to {METRIC_TOL}); predict(300 pairs) max |d| vs the CPU {err:.3g}; recommend(k={k}) "
+        f"{data.n_users} users, no train item, the CPU's lists for every user; no kernel launched")
+    log(phase, f"test() {n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms); recommend() "
+        f"{data.n_users / rec_s:.1f} users/s ({rec_s * 1e3:.2f} ms)")
+    return counts
+
+
+def train_capped(name, phase, seed, root_dir, data, pretrained=None, **model):
+    rec = CAPPED_FAMILY[name][0](capped_config(name, seed, root_dir, **model), **(pretrained or {}))
+    return train_dense(rec, phase, data)
+
+
+def check_band(name, phase, result, res):
+    band = CAPPED_BANDS[name]
+    log(phase, f"(cap {CAPPED_FAMILY[name][2]} epochs) "
+        + in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+        + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
+
+
+def multineg_training(seed, root_dir, data):
+    """Phase 24: UltraGCN and MixGCF at their capped shipped configs inside
+    the JAX bands, UltraGCN's first epochs twice bit for bit. Returns the
+    kernels' counts by path."""
+    counts = {}
+    for name in ("UltraGCN", "MixGCF"):
+        phase = f"{name.lower()}-train"
+        rec, result, res, counts[phase] = train_capped(name, phase, seed, root_dir, data)
+        check_band(name, phase, result, res)
+        check_graph_serving(phase, rec)
+        if name == "UltraGCN":
+            repeats_bit_for_bit(name, phase, seed, REPEAT_EPOCHS, lambda p, epochs: train_capped(
+                name, p, seed, root_dir, data, max_epoch=epochs), flatten_params)
+    return counts
+
+
+def cmn_steps_match_cpu(phase, start, engine, data, steps=CMN_CPU_STEPS):
+    """``steps`` rmsprop steps of CMN from ``engine``'s initial weights (on
+    the device of ``start``, the CMN recommender that built it) and through
+    the port on the CPU, on the same batches ``engine`` forms: each step's
+    loss, every parameter and rmsprop's nu must agree to CMN_CPU_TOL.
+    Returns the largest differences."""
+    cpu = CMN(start.config, device="cpu")
+    cpu.data = data
+    cpu_engine = TrainEngine(cpu.config, cpu.device).build(cpu._build_model(data.n_users, data.n_items), data)
+    cpu_engine.model.load_state_dict(engine.model.state_dict())
+    batches = [x[:steps] for x in engine.epoch_fn.form(engine.generator)]
+    diff = dict.fromkeys(("loss", "parameters", "nu"), 0.0)
+    for s in range(steps):
+        loss, cpu_loss = (float(e.epoch_fn.run_batches(*(x[s:s + 1] for x in batches))) for e in (engine, cpu_engine))
+        diff["loss"] = max(diff["loss"], abs(loss - cpu_loss))
+    params = dict(engine.model.named_parameters())
+    for name, p in cpu_engine.model.named_parameters():
+        diff["parameters"] = max(diff["parameters"], float((params[name].detach().cpu() - p.detach()).abs().max()))
+        nu = engine.optimizer.state[params[name]]["nu"].cpu() - cpu_engine.optimizer.state[p]["nu"]
+        diff["nu"] = max(diff["nu"], float(nu.abs().max()))
+    if max(diff.values()) > CMN_CPU_TOL:
+        fail(f"{phase}: {steps} CMN steps differ from the CPU's by {diff} (limit {CMN_CPU_TOL})")
+    width = engine.model.item_neighbors.shape[1]
+    return (f"{steps} rmsprop steps at emb {engine.model.emb_dim}, {engine.model.hops} hops over neighbourhoods "
+            f"{width} users wide, from the warm-started weights, equal the CPU's on the same batches: max |d| "
+            + ", ".join(f"{key} {value:.3g}" for key, value in diff.items()) + f" (limit {CMN_CPU_TOL})")
+
+
+def memory_training(seed, root_dir, data):
+    """Phase 25: PairwiseGMF, then CMN (rmsprop) warm-started from its best
+    memories, each at its capped shipped config inside the JAX band; CMN
+    starts from the memories bit for bit, its first steps equal the CPU's,
+    its first epochs twice bit for bit, and its test()'s peak device memory. Returns the kernels' counts by
+    path."""
+    counts = {}
+    phase = "pairwise-gmf-train"
+    gmf, result, res, counts[phase] = train_capped("PairwiseGMF", phase, seed, root_dir, data)
+    check_band("PairwiseGMF", phase, result, res)
+    check_graph_serving(phase, gmf)
+    phase = "cmn-train"
+    pretrained = {"user_embeddings": gmf.model.user_memory.detach(), "item_embeddings": gmf.model.item_memory.detach()}
+    start = CMN(capped_config("CMN", seed, root_dir), **pretrained)
+    start.data = data
+    model = start._build_model(data.n_users, data.n_items)
+    engine = TrainEngine(start.config, start.device).build(model, data)  # the weights train() starts from
+    if not (torch.equal(model.user_memory, gmf.model.user_memory)
+            and torch.equal(model.item_memory, gmf.model.item_memory)):
+        fail(f"{phase}: CMN's initial memories are not PairwiseGMF's")
+    log(phase, "CMN's initial user and item memories equal the trained PairwiseGMF's bit for bit")
+    log(phase, cmn_steps_match_cpu(phase, start, engine, data))
+    rec, result, res, counts[phase] = train_capped("CMN", phase, seed, root_dir, data, pretrained)
+    check_band("CMN", phase, result, res)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    n_eval = len(data.eval_candidates(data.test[0]).users)
+    width, mean_len = rec.model.item_neighbors.shape[1], float(rec.model.item_nb_len.float().mean())
+    log(phase, f"test() {n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({before / 2**30:.3f} GiB held before it); "
+        f"neighbourhoods {width} users wide, {mean_len:.1f} an item on average: "
+        f"{1 - mean_len / width:.1%} of the gathered slots are padding")
+    check_graph_serving(phase, rec)
+    counts[phase] = check_no_kernel(phase)  # since train_dense zeroed them: train(), test() and the serving
+    repeats_bit_for_bit("CMN", phase, seed, CMN_REPEAT_EPOCHS, lambda p, epochs: train_capped(
+        "CMN", p, seed, root_dir, data, pretrained, max_epoch=epochs), flatten_params)
+    return counts
+
+
+def capped_phases(seed, root_dir):
+    """Phases 23-25 and one child process profiling their trainings. Returns
+    the kernels' counts by path (all 0)."""
+    data = mf_split()
+    counts = {"ultragcn-serve": serve_ultragcn_checkpoint(root_dir, data)}
+    counts.update(multineg_training(seed, root_dir, data))
+    counts.update(memory_training(seed, root_dir, data))
+    profiled_in_child(PROFILE_CAPPED, seed)
+    return counts
+
+
+PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles, in one child process
+PROFILED_CAPPED_STEPS = 20  # training steps profiled for each of phases 24-25's models
+
+
 def profile_phase(phase, seed):
-    """``--profile``: the profiled calls of one graph phase, in this process
-    alone. A profile without CUDA events prints a WARNING line."""
+    """``--profile``: the profiled calls of one graph phase, or of phases
+    23-25 together, in this process alone. A profile without CUDA events
+    prints a WARNING line."""
 
     def report(what, text):
-        print(f"{phase}: {what}: {text}", flush=True)
+        print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {what}: {text}", flush=True)
         if "not measured" in text:
             print(f"WARNING: {phase}: the profiler recorded no CUDA events for {what}", flush=True)
 
@@ -1961,12 +2212,34 @@ def profile_phase(phase, seed):
                 report(f"{name} test()", device_breakdown(rec.test))
                 report(f"{name} recommend()", device_breakdown(lambda: rec.recommend(k=10)))
             return
+        if phase == PROFILE_CAPPED:
+            path = os.path.join(REPO, "parity_runs/checkpoints", ULTRAGCN_CHECKPOINT)
+            rec = UltraGCN(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
+            rec.test()
+            rec.recommend(k=10)
+            report("UltraGCN test()", device_breakdown(rec.test))
+            report("UltraGCN recommend()", device_breakdown(lambda: rec.recommend(k=10)))
+            pretrained = None
+            for name in CAPPED_FAMILY:
+                rec = CAPPED_FAMILY[name][0](capped_config(name, seed, root_dir), **(pretrained or {}))
+                rec.data = data
+                rec.model = rec._build_model(data.n_users, data.n_items)
+                rec.engine = TrainEngine(rec.config, rec.device).build(rec.model, data)
+                trainer = rec.engine.epoch_fn
+                trainer.run_batches(*(x[:5] for x in trainer.form(rec.engine.generator)))  # to warm up
+                report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, rec.engine.generator,
+                                                                           PROFILED_CAPPED_STEPS, top=8))
+                if name == "PairwiseGMF":
+                    pretrained = {"user_embeddings": rec.model.user_memory.detach(),
+                                  "item_embeddings": rec.model.item_memory.detach()}
+                if name == "CMN":
+                    report("CMN test()", device_breakdown(rec.test))
+            return
         name = {"lightgcn-train": "LightGCN", "ngcf-train": "NGCF"}[phase]
         rec = GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, max_epoch=1))
         rec.train(data)  # one epoch to warm up
         trainer = rec.engine.epoch_fn
-        report("one epoch", device_breakdown(lambda: float(trainer.run(rec.engine.generator)), top=8,
-                                             steps=trainer.num_batches))
+        report("one epoch", profile_window(trainer, rec.engine.generator, trainer.num_batches, top=8))
 
 
 def main():
@@ -1976,8 +2249,9 @@ def main():
                         help="run only the ring kernel and the sharded MF phases (11-16)")
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
-    parser.add_argument("--profile", choices=["graph-serve", "lightgcn-train", "ngcf-train"],
-                        help="profile one graph phase in this process alone (phases 20-22 run it)")
+    parser.add_argument("--profile", choices=["graph-serve", "lightgcn-train", "ngcf-train", PROFILE_CAPPED],
+                        help="profile one graph phase, or phases 23-25, in this process alone (the phases "
+                        "run it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2086,7 +2360,8 @@ def main():
         ring_rows, ring_launches = sharded_phases(args.seed, root_dir)
         ncf_phases(args.seed, root_dir)
         graph_counts = graph_phases(args.seed, root_dir)
-    for path, counts in graph_counts.items():  # every count 0 (check_no_kernel)
+        graph_counts.update(capped_phases(args.seed, root_dir))
+    for path, counts in graph_counts.items():  # phases 17-25: every count 0 (check_no_kernel)
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

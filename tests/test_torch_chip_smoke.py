@@ -1,5 +1,6 @@
 """chip_smoke.py's helpers, and its refusal to report without a card."""
 
+import fnmatch
 import os
 import shutil
 import subprocess
@@ -191,3 +192,75 @@ def test_sparse_route_repeats_reports_each_product():
     repeats = chip_smoke.sparse_route_repeats(prop, 0, d=8)
     assert list(repeats) == ["A @ x", "A^T @ g", "A @ x (dropped edges)", "A^T @ g (dropped edges)"]
     assert not any(repeats.values())
+
+
+@pytest.mark.parametrize("name,cap,batch,optimizer", [("UltraGCN", 10, 1024, "adam"), ("MixGCF", 5, 1024, "adam"),
+                                                      ("PairwiseGMF", 5, 128, "adam"), ("CMN", 3, 128, "rmsprop")])
+def test_capped_config_is_the_shipped_config_at_its_cap(name, cap, batch, optimizer):
+    cfg = chip_smoke.capped_config(name, 3, "/nowhere")
+    assert cfg.system.seed == 3 and cfg.system.root_dir == "/nowhere"
+    assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
+    m = cfg.model
+    assert (m.model, m.max_epoch, m.batch_size, m.optimizer, m.lr, m.max_n_update) == (name, cap, batch, optimizer,
+                                                                                       1e-3, 20)
+    assert chip_smoke.capped_config(name, 3, "/x", max_epoch=2).model.max_epoch == 2
+    band = chip_smoke.CAPPED_BANDS[name]
+    assert set(band) == {"valid", "test"} and all(0 < mean < 0.3 and 0 < std < 0.1 for mean, std in band.values())
+
+
+def test_the_served_ultragcn_checkpoint_is_in_the_repo_and_the_chip_copy():
+    path = os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.ULTRAGCN_CHECKPOINT)
+    assert os.path.exists(os.path.join(path, "checkpoint.msgpack"))
+    with open(os.path.join(REPO, ".chiprunignore")) as f:
+        ignored = [line.strip() for line in f if line.strip() and not line.startswith("#")]
+    assert not any(fnmatch.fnmatch("parity_runs/checkpoints/" + chip_smoke.ULTRAGCN_CHECKPOINT, pattern)
+                   for pattern in ignored)
+    assert any("UltraGCN" in pattern for pattern in ignored)  # the other seeds stay out
+
+
+def test_cmn_steps_match_cpu_compares_loss_parameters_and_nu(tmp_path, monkeypatch):
+    """Both sides on the CPU at a narrow width agree within the limit (not
+    bit for bit: threaded CPU sums part by ~1e-9), and a limit below 0
+    fails."""
+    data = chip_smoke.mf_split()
+    start = chip_smoke.CMN(chip_smoke.capped_config("CMN", 0, str(tmp_path), emb_dim=4), device="cpu")
+    start.data = data
+    engine = chip_smoke.TrainEngine(start.config, start.device).build(
+        start._build_model(data.n_users, data.n_items), data)
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    report = chip_smoke.cmn_steps_match_cpu("cmn-train", start, engine, data, steps=2)
+    assert "emb 4, 2 hops over neighbourhoods 614 users wide" in report and "max |d| loss " in report
+    assert any(not torch.equal(before[k], v) for k, v in engine.model.state_dict().items())  # the steps ran
+    monkeypatch.setattr(chip_smoke, "CMN_CPU_TOL", -1.0)
+    with pytest.raises(SystemExit):
+        chip_smoke.cmn_steps_match_cpu("cmn-train", start, engine, data, steps=1)
+
+
+@pytest.mark.parametrize("name", ["MF", "GMF", "UltraGCN"])
+def test_profile_window_forms_the_batches_inside_it(name, tmp_path, monkeypatch):
+    """The profiled callable draws the epoch's permutation and negatives
+    (the generator advances inside it) and trains ``steps`` steps."""
+    data = chip_smoke.mf_split()
+    if name == "MF":
+        rec = chip_smoke.MatrixFactorization(chip_smoke.mf_config(0, str(tmp_path), emb_dim=4), device="cpu")
+    elif name == "GMF":
+        rec = chip_smoke.GMFRecommender(chip_smoke.ncf_config("GMF", 0, str(tmp_path)), device="cpu")
+    else:
+        rec = chip_smoke.UltraGCN(chip_smoke.capped_config(name, 0, str(tmp_path), emb_dim=4), device="cpu")
+    rec.data = data
+    engine = chip_smoke.TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
+    trainer, generator = engine.epoch_fn, engine.generator
+    seen = {}
+
+    def breakdown(fn, steps=None, **kwargs):
+        state = generator.get_state()
+        seen["loss"], seen["steps"] = fn(), steps
+        seen["drew"] = not torch.equal(state, generator.get_state())
+        return "profiled"
+
+    monkeypatch.setattr(chip_smoke, "device_breakdown", breakdown)
+    calls = []
+    run_batches = trainer.run_batches
+    monkeypatch.setattr(trainer, "run_batches", lambda *a, **k: calls.append(a[0].shape) or run_batches(*a, **k))
+    assert chip_smoke.profile_window(trainer, generator, 3) == "profiled"
+    assert seen["drew"] and seen["steps"] == 3 and np.isfinite(seen["loss"]) and calls == [(3, trainer.batch_size)]

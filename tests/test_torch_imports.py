@@ -30,6 +30,16 @@ for name in chip_smoke.NCF_FAMILY:
     chip_smoke.ncf_config(name, 0, "unused")
 for name in chip_smoke.GRAPH_FAMILY:
     chip_smoke.graph_config(name, 0, "unused", max_epoch=1)
+for name in chip_smoke.CAPPED_FAMILY:
+    chip_smoke.capped_config(name, 0, "unused")
+from beta_recsys_tpu_torch.core.train_engine import OptaxRMSprop
+from beta_recsys_tpu_torch.models.cmn import build_item_neighborhoods
+from beta_recsys_tpu_torch.ops.ultragcn_prep import get_ii_constraint_mat
+import scipy.sparse as sp
+csr = sp.csr_matrix(chip_smoke.np.eye(4, 5, dtype=chip_smoke.np.float32))
+build_item_neighborhoods(csr)
+get_ii_constraint_mat(csr, 2)
+OptaxRMSprop([chip_smoke.torch.zeros(2, requires_grad=True)], lr=0.1)
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather
 make_mesh(1, 4, ["cpu"] * 4)
@@ -75,6 +85,18 @@ def test_mf_recommender_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("name", ["GMFRecommender", "MLPRecommender", "NeuCF"])
 def test_ncf_family_recommenders_default_to_cuda(monkeypatch, name):
+    from beta_recsys_tpu_torch import recommenders
+
+    cls = getattr(recommenders, name)
+    config = {"model": {"model": cls.model_name}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(config)
+    assert cls(config, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["PairwiseGMFRecommender", "CMN", "UltraGCN", "MixGCF"])
+def test_multineg_and_memory_recommenders_default_to_cuda(monkeypatch, name):
     from beta_recsys_tpu_torch import recommenders
 
     cls = getattr(recommenders, name)

@@ -206,12 +206,13 @@ def test_tpu_row_layouts_and_other_batch_kinds_raise(split):
     for layout in ("unified", "compact", "unified_bf16"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SparseEpochTrainer(ours, data.train_arrays(), BATCH, None, LR, None, row_update=layout)
-    # MF + BCE is pointwise and trains (tests/test_torch_train_pointwise.py);
-    # multineg batches are still to port.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_epoch_fn(types.SimpleNamespace(batch_kind="multineg"), None, data.train_arrays(), BATCH, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer({"optimizer": "rmsprop"}, ours.parameters())
+    # MF + BCE is pointwise and trains (tests/test_torch_train_pointwise.py),
+    # multineg batches and rmsprop too (tests/test_torch_train_multineg.py);
+    # a batch kind or an optimizer the JAX package lacks raises as it does there.
+    with pytest.raises(ValueError, match="got none"):
+        make_epoch_fn(types.SimpleNamespace(batch_kind="none"), None, data.train_arrays(), BATCH, None)
+    with pytest.raises(ValueError, match="Unknown optimizer adagrad"):
+        make_optimizer({"optimizer": "adagrad"}, ours.parameters())
 
 
 def _config(root, **model):

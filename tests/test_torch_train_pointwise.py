@@ -226,8 +226,10 @@ def test_mesh_and_multineg_batches_raise(split, tmp_path):
     model = build_model(cfg.model, data.n_users, data.n_items, device="cpu")
     with pytest.raises(NotImplementedError, match="section 1 item 8"):
         TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
-    with pytest.raises(NotImplementedError, match="section 1 item 2"):
-        make_epoch_fn(types.SimpleNamespace(batch_kind="multineg"), None, data.train_arrays(), BATCH, None)
+    # Multineg batches train (tests/test_torch_train_multineg.py); a batch
+    # kind the dense trainer lacks raises, as in the JAX package.
+    with pytest.raises(ValueError, match="got none"):
+        make_epoch_fn(types.SimpleNamespace(batch_kind="none"), None, data.train_arrays(), BATCH, None)
 
 
 def test_neucf_takes_mesh_devices_and_its_mesh_raises(split, tmp_path):
