@@ -199,10 +199,12 @@ class EpochBatches:
 
 
 class DenseEpochTrainer(EpochBatches):
-    """Every parameter updates through ``optimizer`` from ``model.loss`` on
-    pairwise batches, or multineg ones with ``neg_shape`` (num_neg,): the
-    ``"pairwise"`` and ``"multineg"`` branches of the JAX ``make_epoch_fn``,
-    whose batch is {"users", "pos_items", "neg_items"} either way."""
+    """Every trained parameter updates through ``optimizer`` from
+    ``model.loss`` on pairwise batches, or multineg ones with ``neg_shape``
+    (num_neg,): the ``"pairwise"`` and ``"multineg"`` branches of the JAX
+    ``make_epoch_fn``, whose batch is {"users", "pos_items", "neg_items"}
+    either way. After each optimizer step the model's ``post_update()``, if
+    it has one, moves the parameters no gradient reaches."""
 
     def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, neg_shape=()):
         super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device, neg_shape)
@@ -214,7 +216,16 @@ class DenseEpochTrainer(EpochBatches):
         loss = self.model.loss({"users": users, "pos_items": pos, "neg_items": neg}, generator)
         loss.backward()
         self.optimizer.step()
+        self.post_update()
         return loss.detach()
+
+    def post_update(self):
+        """The model's ``post_update()`` after the optimizer step, when it has
+        one (BUIR's target EMA), as the JAX ``make_epoch_fn`` step calls it."""
+        post = getattr(self.model, "post_update", None)
+        if post is not None:
+            with torch.no_grad():
+                post()
 
 
 class PointwiseEpochTrainer(DenseEpochTrainer):
@@ -271,6 +282,7 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
         loss = self.model.loss(batch, generator)
         loss.backward()
         self.optimizer.step()
+        self.post_update()
         return loss.detach()
 
 
@@ -447,8 +459,8 @@ class TrainEngine:
                 model, self.optimizer, data.train_seq_arrays(model.maxlen),
                 int(model_cfg.get("batch_size", 128)), neg_sampler,
             )
-        else:
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
+        else:  # a parameter without requires_grad (BUIR's target) moves by post_update alone
+            self.optimizer = make_optimizer(model_cfg, [p for p in model.parameters() if p.requires_grad])
             num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))
             self.epoch_fn = make_epoch_fn(model, self.optimizer, data.train_arrays(), batch_size, neg_sampler,
                                           num_neg)
@@ -545,7 +557,8 @@ class TrainEngine:
         {"0": {"nu"}, "1": {}, "2": {}} for rmsprop (optax 0.2's chain of
         ``scale_by_rms``, an identity and the learning rate), {"0": {}, "1":
         {}} for sgd): the table moments of the lazy-Adam trainer and Adam's
-        or rmsprop's state of the other parameters, nested like the
+        or rmsprop's state of the other parameters (zeros where a parameter
+        has none), nested like the
         params tree (``blocks.0.attn.wq`` -> {"blocks": {"0": {"attn":
         {"wq": ...}}}}; MF's names are flat), so the JAX package's cold
         ``load`` finds the structure it expects."""
@@ -569,6 +582,11 @@ class TrainEngine:
             for name, (m, v) in self.epoch_fn.state["moments"].items():
                 mu[name], nu[name] = m.cpu().numpy(), v.cpu().numpy()
             count = self.epoch_fn.state["step"]
+        # A parameter no gradient reaches (BUIR's target) keeps optax's zero
+        # moments, as stop_gradient leaves them in the JAX package.
+        for name, p in self.model.named_parameters():
+            if name not in mu:
+                mu[name] = nu[name] = np.zeros(tuple(p.shape), np.float32)
         return {"0": {"count": np.int32(count), "mu": nest_dotted(mu), "nu": nest_dotted(nu)}, "1": {}}
 
     def save_checkpoint(self, epoch=None, kind="best"):

@@ -12,7 +12,10 @@ place of pandas. It keeps the reference's semantics exactly:
 The graph artifacts (``create_adj_mat``, ``get_adj_mat``, ``get_norm_adj``)
 are the JAX package's scipy constructions over the (users + items) node
 graph, with the same arrays in the same order; ``create_constraint_mat`` is
-UltraGCN's degree vectors, as the JAX package computes them.
+UltraGCN's degree vectors, ``create_sgl_mat`` SGL's host-side augmented
+adjacency and ``get_graph_embeddings`` LCFN's hypergraph-Laplacian
+eigenvectors, as the JAX package computes them (the eigenvectors from a
+fixed ARPACK start, kept per data object).
 """
 
 import os
@@ -77,6 +80,7 @@ class BaseData:
         self.valid = [self._prepare(self._intersect(f), bin_thld) for f in valid]
         self.test = [self._prepare(self._intersect(f), bin_thld) for f in test]
         self._pos_csr_cache = None
+        self._graph_embeddings_cache = {}
 
     def _intersect(self, frame):
         """Drop rows whose user or item is unseen in train."""
@@ -248,6 +252,75 @@ class BaseData:
         beta_ud[~np.isfinite(beta_ud)] = 0.0
         beta_id = 1.0 / np.sqrt(items_d + 1)
         return train_mat, beta_ud.astype(np.float32), beta_id.astype(np.float32)
+
+    def create_sgl_mat(self, aug_type=1, ssl_ratio=0.1, is_subgraph=True, rng=None):
+        """SGL's augmented sym-normalized adjacency as COO arrays (rows, cols,
+        vals): aug_type 0 drops ``ssl_ratio`` of the users and of the items,
+        1 and 2 keep ``1 - ssl_ratio`` of the train rows, drawn by ``rng``
+        (a ``np.random.Generator``) with the JAX package's ``choice`` calls in
+        its order (JAX ``create_sgl_mat``, ``data/base_data.py:384-422``)."""
+        rng = rng or np.random.default_rng()
+        n = self.n_users + self.n_items
+        user_np = self.train[DEFAULT_USER_COL].astype(np.int64)
+        item_np = self.train[DEFAULT_ITEM_COL].astype(np.int64)
+        if is_subgraph and aug_type in (0, 1, 2) and ssl_ratio > 0:
+            if aug_type == 0:
+                keep_user = np.ones(self.n_users, dtype=bool)
+                keep_item = np.ones(self.n_items, dtype=bool)
+                keep_user[rng.choice(self.n_users, size=int(self.n_users * ssl_ratio), replace=False)] = False
+                keep_item[rng.choice(self.n_items, size=int(self.n_items * ssl_ratio), replace=False)] = False
+                keep = keep_user[user_np] & keep_item[item_np]
+                u_keep, i_keep = user_np[keep], item_np[keep]
+            else:
+                keep_idx = rng.choice(len(user_np), size=int(len(user_np) * (1 - ssl_ratio)), replace=False)
+                u_keep, i_keep = user_np[keep_idx], item_np[keep_idx]
+        else:
+            u_keep, i_keep = user_np, item_np
+        ones = np.ones(len(u_keep), dtype=np.float32)
+        upper = sp.csr_matrix((ones, (u_keep, i_keep + self.n_users)), shape=(n, n))
+        adj = (upper + upper.T).tocoo()
+        deg = np.asarray(adj.sum(axis=1)).flatten()
+        d_inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+        vals = d_inv_sqrt[adj.row] * adj.data * d_inv_sqrt[adj.col]
+        return adj.row.astype(np.int32), adj.col.astype(np.int32), vals.astype(np.float32)
+
+    def hypergraph_laplacians(self):
+        """LCFN's (L_u, L_v) as scipy sparse matrices: I - D_n^-1/2 H D_e^-1
+        H^T D_n^-1/2 over the users (items as hyperedges) and the same over
+        the items, H the binarized train matrix, degrees floored at 1e-10."""
+        eps = 1e-10
+        h = self.user_item_csr()
+        h.data[:] = 1.0
+        d_u = np.asarray(h.sum(axis=1)).flatten()
+        d_v = np.asarray(h.sum(axis=0)).flatten()
+        dn_u = sp.diags(1.0 / np.maximum(np.sqrt(d_u), eps))
+        de_v = sp.diags(1.0 / np.maximum(d_v, eps))
+        l_u = sp.eye(self.n_users) - dn_u @ h @ de_v @ h.T @ dn_u
+        dn_v = sp.diags(1.0 / np.maximum(np.sqrt(d_v), eps))
+        de_u = sp.diags(1.0 / np.maximum(d_u, eps))
+        l_v = sp.eye(self.n_items) - dn_v @ h.T @ de_u @ h @ dn_v
+        return l_u, l_v
+
+    def get_graph_embeddings(self, cut_off=0.2, tol=1e-5):
+        """LCFN's (P, Q), float32: the eigenvectors of the smallest
+        max(int(cut_off * n), 1) eigenvalues of each hypergraph Laplacian
+        (``scipy.sparse.linalg.eigsh(which="SM")``, JAX
+        ``get_graph_embeddings``, ``data/base_data.py:424-454``). ARPACK
+        starts from U(-1, 1) draws of ``np.random.default_rng(0)``, not from a
+        fresh random vector, so two calls give the same bits (an eigenvector
+        is free up to its sign, and the JAX package's call to call). One
+        result is kept per (cut_off, tol)."""
+        key = (float(cut_off), float(tol))
+        if key not in self._graph_embeddings_cache:
+            from scipy.sparse.linalg import eigsh
+
+            out = []
+            for lap, n in zip(self.hypergraph_laplacians(), (self.n_users, self.n_items)):
+                v0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
+                _, vecs = eigsh(lap.tocsc(), k=max(int(cut_off * n), 1), which="SM", tol=tol, v0=v0)
+                out.append(vecs.astype(np.float32))
+            self._graph_embeddings_cache[key] = tuple(out)
+        return self._graph_embeddings_cache[key]
 
 
 def _row_normalize(adj):

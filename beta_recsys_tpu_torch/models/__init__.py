@@ -1,5 +1,7 @@
+from .buir import BUIR
 from .cmn import CMN
 from .gmf import GMF
+from .lcfn import LCFN
 from .lightgcn import LightGCN
 from .mf import MF
 from .mixgcf import MixGCF
@@ -8,6 +10,8 @@ from .ncf import NeuMF
 from .ngcf import NGCF
 from .pairwise_gmf import PairwiseGMF
 from .sasrec import SASRec
+from .sgl import SGL
+from .simgcl import SimGCL
 from .ultragcn import UltraGCN
 
 # The JAX registry's names for the ported models (beta_recsys_tpu/models/__init__.py).
@@ -15,6 +19,8 @@ MODELS = {
     "MF": MF, "GMF": GMF, "MLP": MLP, "NCF": NeuMF, "NeuMF": NeuMF, "ncf": NeuMF, "SASRec": SASRec,
     "LightGCN": LightGCN, "lightgcn": LightGCN, "NGCF": NGCF, "ngcf": NGCF, "PairwiseGMF": PairwiseGMF,
     "CMN": CMN, "cmn": CMN, "UltraGCN": UltraGCN, "ultragcn": UltraGCN, "MixGCF": MixGCF, "mixgcf": MixGCF,
+    "SGL": SGL, "sgl": SGL, "SimGCL": SimGCL, "simgcl": SimGCL, "BUIR": BUIR, "buir": BUIR,
+    "LCFN": LCFN, "lcfn": LCFN,
 }
 
 

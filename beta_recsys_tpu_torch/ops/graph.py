@@ -22,6 +22,11 @@ TPU strategies; the port has two routes, both torch ops:
 ``pack_propagator``'s "auto" picks dense up to 4,096 nodes, as the JAX
 package does. ``spmm_coo`` is the plain reference (gather, then
 ``index_add_``) the tests hold both routes to.
+
+SGL's augmentation (``sgl_augment``, the JAX ``sgl_augment``) draws a
+subgraph on the device and renormalizes it: node dropout keeps an edge when
+both its ends are kept; edge dropout draws once per undirected pair
+(``undirected_pairs``, built once on the host), so A stays symmetric.
 """
 
 import warnings
@@ -44,6 +49,40 @@ def edge_dropout(generator, vals, keep_prob):
     ``generator`` on the values' device, scaling the kept by 1 / keep_prob."""
     keep = torch.rand(vals.shape, generator=generator, device=vals.device) < keep_prob
     return torch.where(keep, vals / keep_prob, 0.0)
+
+
+def undirected_pairs(rows, cols):
+    """(pair index of each directed edge, number of pairs): both directions
+    of an edge share one index, the rank of its (min, max) end pair."""
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    n = int(max(rows.max(initial=-1), cols.max(initial=-1))) + 1
+    pair_ids = np.minimum(rows, cols) * n + np.maximum(rows, cols)
+    uniq, inverse = np.unique(pair_ids, return_inverse=True)
+    return inverse.reshape(-1), len(uniq)
+
+
+def sgl_draws(generator, n, device):
+    """SGL's U[0, 1) draws, one a node (node dropout) or one an undirected
+    pair (edge dropout), from ``generator`` on ``device``."""
+    return torch.rand(n, generator=generator, device=device)
+
+
+def sgl_augment(draws, rows, cols, edge_pair, n_nodes, aug_type=1, ssl_ratio=0.1):
+    """The renormalized values of the subgraph that ``draws`` keep: aug_type
+    0 (node dropout, a draw a node) keeps the edges whose two ends draw at
+    least ``ssl_ratio``; 1 and 2 (edge dropout, random walk; a draw a pair of
+    ``edge_pair``) the edges whose pair does. Values are 1 / sqrt(d_row
+    d_col) over the kept degrees, 0 on dropped edges and isolated nodes."""
+    if aug_type == 0:
+        node_keep = draws >= ssl_ratio
+        keep = node_keep[rows] & node_keep[cols]
+    else:
+        keep = (draws >= ssl_ratio)[edge_pair]
+    ones = keep.to(torch.float32)
+    # Integer counts: exact in any order of summation.
+    deg = torch.zeros(n_nodes, device=ones.device).index_add_(0, rows, ones)
+    d_inv_sqrt = torch.where(deg > 0, deg.clamp_min(1e-12).rsqrt(), 0.0)
+    return ones * d_inv_sqrt[rows] * d_inv_sqrt[cols]
 
 
 class DensePropagator:

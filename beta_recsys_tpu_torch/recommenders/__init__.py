@@ -1,8 +1,8 @@
 """User-facing recommender wrappers, one per model family.
 
 Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
-NeuMF, LightGCN, NGCF, PairwiseGMF, CMN, UltraGCN, MixGCF and SASRec are
-ported so far.
+NeuMF, LightGCN, NGCF, PairwiseGMF, CMN, UltraGCN, MixGCF, SimGCL, SGL,
+BUIR, LCFN and SASRec are ported so far.
 """
 
 from ..convert import (
@@ -119,14 +119,48 @@ class UltraGCN(Recommender):
         return {"constraint": (beta_ud, beta_id), "ii_neighbors": nb, "ii_sims": sims}
 
 
-class MixGCF(Recommender):
-    """MixGCF over the symmetric-normalized interaction graph D^-1/2 A D^-1/2,
-    on multineg batches of K * n_negs candidates a positive."""
-
-    model_name = "MixGCF"
+class SymGraphRecommender(Recommender):
+    """A model over the symmetric-normalized interaction graph D^-1/2 A D^-1/2."""
 
     def build_artifacts(self, data):
         return {"adj": data.get_norm_adj("sym")}
+
+
+class MixGCF(SymGraphRecommender):
+    """MixGCF on multineg batches of K * n_negs candidates a positive."""
+
+    model_name = "MixGCF"
+
+
+class SimGCL(SymGraphRecommender):
+    """SimGCL; serving scores the raw tables."""
+
+    model_name = "SimGCL"
+
+
+class SGL(SymGraphRecommender):
+    """SGL, its augmented views drawn on the device each step."""
+
+    model_name = "SGL"
+
+
+class BUIR(SymGraphRecommender):
+    """BUIR's online and target encoders; the trainer moves the target by
+    the model's ``post_update`` after every step. ``predict()`` raises
+    ``NotImplementedError``, as the JAX package's does."""
+
+    model_name = "BUIR"
+
+
+class LCFN(Recommender):
+    """LCFN over the hypergraph-Laplacian eigenvectors of the train split
+    (``BaseData.get_graph_embeddings(cut_off)``, computed on the host once a
+    data object)."""
+
+    model_name = "LCFN"
+
+    def build_artifacts(self, data):
+        return {"graph_embeddings": data.get_graph_embeddings(float(self.config.model.get("cut_off", 0.2)))}
 
 
 class SASRec(Recommender):

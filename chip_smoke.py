@@ -42,12 +42,12 @@ Phases, each printed with the seconds elapsed:
  12. on 4 cards or more (with --chips 4): `nvidia-smi topo -m`, peer access,
      and phase 11 across cuda:0-3 against torch.cuda.nccl.all_gather;
  13. the slice's main path: MatrixFactorization(cfg, mesh_devices=["cuda:0"]
-     * 4).train(data) on a (1, 4) mesh, lazy Adam, ring lookup, 3 epochs,
-     bit-equal to the one-device lazy-Adam trainer, exact ring launches, no
-     bucket overflow; then test() and recommend() (no pad item); on 4 cards
-     again on cuda:0-3;
- 14. 3 epochs on a (2, 2) mesh through run_batches against the one-device
-     trainer, within MESH_TOL (on 4 cards again on cuda:0-3);
+     * 4).train(data) on a (1, 4) mesh, lazy Adam, ring lookup, 2 epochs
+     (ONE_CARD_MESH_EPOCHS), bit-equal to the one-device lazy-Adam trainer,
+     exact ring launches, no bucket overflow; then test() and recommend()
+     (no pad item); on 4 cards again on cuda:0-3, 3 epochs;
+ 14. 2 epochs on a (2, 2) mesh through run_batches against the one-device
+     trainer, within MESH_TOL (on 4 cards again on cuda:0-3, 3 epochs);
  15. 20 steps on a (1, 4) mesh of cuda:0 with 1,000,000-row tables and
      batches of 16,384: time a step and the ring's share of device time;
  16. on 4 cards: the slice trained to early stop on cuda:0-3, inside the JAX
@@ -78,10 +78,11 @@ Phases, each printed with the seconds elapsed:
      best valid and test ndcg@10 inside the JAX package's ten-seed bands;
      its first 3 epochs twice, bit for bit; positives/s;
  22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
-     Phases 20-22 launch none of the kernels, and each profiles (a
-     test() and a recommend() of each checkpoint; one epoch of each model)
-     in a process of its own (``--profile``), printing a WARNING where the
-     profiler recorded no CUDA events;
+     Phases 20-22 launch none of the kernels and profile in one child
+     process (``--profile graph-models``: a test() and a recommend() of each
+     checkpoint; an epoch's batch forming and 20 steps of each model after
+     5 to warm up), printing a WARNING where the profiler recorded no CUDA
+     events;
  23. serve the JAX-trained seed-0 UltraGCN checkpoint: load -> test() ->
      predict() -> recommend(k=10); test() reproduces the JAX package's
      metrics to 1e-4, predict() the port's on the CPU to 1e-6, the top-10
@@ -103,17 +104,38 @@ Phases, each printed with the seconds elapsed:
      child process (``--profile capped-models``: UltraGCN's test() and
      recommend(), an epoch's batch forming and 20 steps of each model after
      5 to warm up, and CMN's test()); positives/s of every training;
- 26. a JSON line of every kernel with its launches on each path, counted
+ 26. SimGCL and SGL (both_side InfoNCE over two views of edge dropout a
+     step, drawn on the device), 27. BUIR (online and target encoders, the
+     target moved by its ``post_update`` EMA after every step) and LCFN
+     (hypergraph spectral filters; its eigendecomposition on the host,
+     timed): each at its shipped config (emb 64, batch 1,024, Adam at lr
+     1e-3) through XRecommender(cfg).train(data), seed 0, capped at
+     SSL_FAMILY's epochs, against the JAX package's ten-seed bands at those
+     caps (held for BUIR; reported for SimGCL, SGL and LCFN, whose bands
+     reach below UNTRAINED_NDCG and so cannot fail an untrained model);
+     before that, each model's first 5 steps from its initial weights on
+     the card against the same steps through the port on the CPU, with the
+     same batches and draws (1e-5: the loss, every parameter but Adam's
+     eps-set elements, Adam's moments) and the dense A's built a step;
+     BUIR's target after one step equal to m * initial + (1 - m) * online
+     (1e-7), its predict() raising as the JAX package's; SGL's and BUIR's first 2 epochs twice, bit for
+     bit; LCFN's P and Q from a second eigendecomposition on a fresh data
+     object bit for bit. Phases 26-27 launch none of the kernels and
+     profile in one child process (``--profile ssl-models``: an epoch's
+     batch forming and 20 steps of each model after 5 to warm up);
+     positives/s of every training;
+ 28. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
 drives no path); with --profile <phase>, only that graph phase's (or
-phases 23-25's) profiles and no result line. Imports nothing of JAX or of the JAX package.
+phases 23-25's, or 26-27's) profiles and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -155,6 +177,8 @@ from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
 from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
 from beta_recsys_tpu_torch.models import build_model  # noqa: E402
+from beta_recsys_tpu_torch.models import sgl as sgl_model  # noqa: E402
+from beta_recsys_tpu_torch.models import simgcl as simgcl_model  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
     flash_causal_attention_bwd,
@@ -171,8 +195,11 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
+    BUIR,
     CMN,
+    LCFN,
     NGCF,
+    SGL,
     GMFRecommender,
     LightGCN,
     MatrixFactorization,
@@ -181,6 +208,7 @@ from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     NeuCF,
     PairwiseGMFRecommender,
     SASRec,
+    SimGCL,
     UltraGCN,
 )
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
@@ -281,6 +309,7 @@ MESH_CAPACITY_FACTOR = 4.0
 # CPU: 1.2e-5, 1.5e-4, 9.8e-4 for parameters, 1.0e-5, 1.3e-4, 1.2e-3 for
 # moments). Each epoch's loss to 1e-5 relative.
 MESH_TOL = (1e-4, 1e-3, 1e-2)
+ONE_CARD_MESH_EPOCHS = 2  # phases 13-14 on cuda:0 (the 4-card call's run 3 epochs)
 PROFILED_STEPS = 3  # sharded steps under torch.profiler (~2,500 device activities each)
 PROFILED_WINDOW = 50  # one-device training steps under torch.profiler
 # The NCF family: each model's recommender, shipped config and JAX-trained
@@ -371,6 +400,50 @@ CMN_REPEAT_EPOCHS = 2  # CMN's epochs trained twice, bit for bit
 # untrained CMN, so this is the check that can.
 CMN_CPU_STEPS = 5
 CMN_CPU_TOL = 1e-5  # |d| of each step's loss, every parameter and rmsprop's nu
+# The self-supervised graph models: each recommender, shipped config and the
+# epochs its training runs (the cap its JAX band is read at).
+SSL_FAMILY = {
+    "SimGCL": (SimGCL, "configs/simgcl_default.json", 5),
+    "SGL": (SGL, "configs/sgl_default.json", 10),
+    "BUIR": (BUIR, "configs/buir_default.json", 10),
+    "LCFN": (LCFN, "configs/lcfn_default.json", 10),
+}
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's training at each shipped config on the structured split, read at
+# SSL_FAMILY's caps from runs of 10 (SGL, SimGCL), 20 (BUIR) and 30 (LCFN)
+# epochs: `JAX_PLATFORMS=cpu python port_tools/jax_ssl_band.py`. A port run
+# must land within mean +- 3 std.
+SSL_BANDS = {
+    "SimGCL": {"valid": (0.043712081760168074, 0.00596111511328402),
+               "test": (0.04386897869408131, 0.004907593624816164)},
+    "SGL": {"valid": (0.058004602789878845, 0.0051046440628912445),
+            "test": (0.05443970412015915, 0.005306741983629238)},
+    "BUIR": {"valid": (0.21944656372070312, 0.011574333014879949),
+             "test": (0.1959553763270378, 0.010922941035756544)},
+    "LCFN": {"valid": (0.03861007057130337, 0.0002360001956580145),
+             "test": (0.037261197715997695, 0.0007469638806129243)},
+}
+# Random ranking over a user's 101 candidates reads ndcg@10 ~0.045: a band
+# whose lower edge lies below this cannot fail an untrained model.
+UNTRAINED_NDCG = 0.06
+SSL_REPEAT_EPOCHS = 2  # SGL's and BUIR's epochs trained twice, bit for bit
+# Each model's first steps at the shipped width on the card against the same
+# steps through the port on the CPU (which tests/test_torch_train_ssl.py holds
+# to the JAX package), with the same weights, batches and draws: the check
+# that can fail an untrained model where its band cannot.
+SSL_CPU_STEPS = 5
+SSL_CPU_TOL = 1e-5  # |d| of each step's loss (over max(1, |loss|)), every parameter and Adam moment
+BUIR_EMA_TOL = 1e-7  # BUIR's target after one step against m * initial + (1 - m) * online
+# Adam's first step moves an element by lr * g / (|g| + 1e-8): where |g| is
+# near its eps (a gradient that is a near-cancellation of larger terms, its
+# rounding on the card and the CPU ~1e-9 apart), that step is set by eps and
+# the rounding, not by the model. Elements whose gradient lay below
+# SSL_EPS_SET on both sides may pass SSL_CPU_TOL (on an H100, by
+# port_tools/ssl_steps_diag.py: one item_emb element of SGL's 168,000 by
+# 1.44e-4, of BUIR's by 1.06e-5), at most EPS_SET_SHARE of the elements,
+# each within lr a step.
+SSL_EPS_SET = 1e-7
+EPS_SET_SHARE = 1e-4
 
 T0 = time.perf_counter()
 
@@ -825,12 +898,19 @@ def mf_config(seed, root_dir, **model):
     )
 
 
-def in_band(what, value, band):
+def band_position(what, value, band):
+    """Where ``value`` lies against the JAX band mean +- 3 std."""
     mean, std = band
     lo, hi = mean - 3 * std, mean + 3 * std
-    if not lo <= value <= hi:
-        fail(f"{what} {value:.6f} lies outside the JAX band [{lo:.4f}, {hi:.4f}] (mean {mean:.4f} +- 3 x {std:.4f})")
-    return f"{what} {value:.6f} in [{lo:.4f}, {hi:.4f}]"
+    return f"{what} {value:.6f} {'in' if lo <= value <= hi else 'OUTSIDE'} [{lo:.4f}, {hi:.4f}]"
+
+
+def in_band(what, value, band):
+    """``band_position``, failing outside the band."""
+    text = band_position(what, value, band)
+    if "OUTSIDE" in text:
+        fail(f"{text}, the JAX band (mean {band[0]:.4f} +- 3 x {band[1]:.4f})")
+    return text
 
 
 def train_mf(phase, seed, root_dir, **model):
@@ -1587,8 +1667,8 @@ def sharded_phases(seed, root_dir, cards_only=False, ring_only=False):
     rows = ring_phase(lambda n: ["cuda:0"] * n, {(4, 200), (4, 800), (4, 8192)})
     launches = {}
     if not ring_only and not (cards_only and n_cards >= 4):
-        launches["mf_mesh_1x4"] = mesh_entry_point(seed, root_dir, (1, 4), one_card)
-        launches["mf_mesh_2x2"] = mesh_run_batches(seed, (2, 2), one_card)
+        launches["mf_mesh_1x4"] = mesh_entry_point(seed, root_dir, (1, 4), one_card, ONE_CARD_MESH_EPOCHS)
+        launches["mf_mesh_2x2"] = mesh_run_batches(seed, (2, 2), one_card, ONE_CARD_MESH_EPOCHS)
         launches["table_scale"] = mesh_table_scale(seed, one_card)
     if n_cards >= 4:
         cards = [f"cuda:{i}" for i in range(4)]
@@ -1948,7 +2028,6 @@ def serve_graph_checkpoints(root_dir, data):
         "twice, " + ", ".join(f"{name} {'bit for bit alike' if not d else f'differs by up to {d:.3g}'}"
                               for name, d in repeats.items()))
     log("lightgcn-serve", propagation_times(served["LightGCN"].model.prop, sparse.model.prop))
-    profiled_in_child("graph-serve", 0)
     return counts
 
 
@@ -2012,15 +2091,16 @@ def graph_training(seed, root_dir, data):
         if name == "LightGCN":
             repeats_bit_for_bit(name, phase, seed, REPEAT_EPOCHS, lambda p, epochs: train_graph(
                 name, p, seed, root_dir, data, max_epoch=epochs), lightgcn_params_from_jax)
-        profiled_in_child(phase, seed)
     return counts
 
 
 def graph_phases(seed, root_dir):
-    """Phases 20-22. Returns the kernels' counts by path (all 0)."""
+    """Phases 20-22 and one child process profiling them. Returns the
+    kernels' counts by path (all 0)."""
     data = mf_split()
     counts = serve_graph_checkpoints(root_dir, data)
     counts.update(graph_training(seed, root_dir, data))
+    profiled_in_child(PROFILE_GRAPH, seed)
     return counts
 
 
@@ -2104,32 +2184,115 @@ def multineg_training(seed, root_dir, data):
     return counts
 
 
-def cmn_steps_match_cpu(phase, start, engine, data, steps=CMN_CPU_STEPS):
-    """``steps`` rmsprop steps of CMN from ``engine``'s initial weights (on
-    the device of ``start``, the CMN recommender that built it) and through
-    the port on the CPU, on the same batches ``engine`` forms: each step's
-    loss, every parameter and rmsprop's nu must agree to CMN_CPU_TOL.
-    Returns the largest differences."""
-    cpu = CMN(start.config, device="cpu")
+class DrawReplay:
+    """Inside the block, SGL's subgraph draws and SimGCL's noise draws of a
+    recording run are kept in order and handed, in that order, to a
+    replaying run (``replaying`` True): the same draws on the card and on
+    the CPU."""
+
+    def __init__(self):
+        self.queue = collections.deque()
+        self.replaying = False
+        self._saved = []
+
+    def _wrap(self, real):
+        def draw(generator, shape, device):
+            if self.replaying:
+                return self.queue.popleft().to(device)
+            out = real(generator, shape, device)
+            self.queue.append(out)
+            return out
+
+        return draw
+
+    def __enter__(self):
+        for module, name in ((sgl_model, "sgl_draws"), (simgcl_model, "perturbation_noise")):
+            self._saved.append((module, name, getattr(module, name)))
+            setattr(module, name, self._wrap(getattr(module, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self._saved:
+            setattr(module, name, real)
+
+
+def steps_match_cpu(phase, start, engine, data, steps, tol, eps_set=0.0):
+    """``steps`` optimizer steps from ``engine``'s weights (on the device of
+    ``start``, the recommender that built it) and through the port on the
+    CPU, on the batches ``engine`` forms and the same draws (``DrawReplay``):
+    each step's loss (relative to max(1, |loss|)), every parameter and every
+    optimizer moment must agree to ``tol``. With ``eps_set`` > 0 (Adam), a
+    parameter element whose gradient lay below ``eps_set`` on both sides at
+    some step is eps-set: Adam moves it by lr * g / (|g| + 1e-8), so the
+    rounding of a gradient that is a near-cancellation moves it by up to lr.
+    Such elements alone may pass ``tol`` (at most EPS_SET_SHARE of the
+    elements, each within lr a step). Returns the largest differences (the
+    eps-set elements apart), the dense A's the card built a step, and a
+    report of the eps-set elements past ``tol``."""
+    cpu = type(start)(start.config, device="cpu")
     cpu.data = data
     cpu_engine = TrainEngine(cpu.config, cpu.device).build(cpu._build_model(data.n_users, data.n_items), data)
     cpu_engine.model.load_state_dict(engine.model.state_dict())
     batches = [x[:steps] for x in engine.epoch_fn.form(engine.generator)]
-    diff = dict.fromkeys(("loss", "parameters", "nu"), 0.0)
-    for s in range(steps):
-        loss, cpu_loss = (float(e.epoch_fn.run_batches(*(x[s:s + 1] for x in batches))) for e in (engine, cpu_engine))
-        diff["loss"] = max(diff["loss"], abs(loss - cpu_loss))
     params = dict(engine.model.named_parameters())
+    tiny = {name: torch.zeros(p.shape, dtype=torch.bool) for name, p in cpu_engine.model.named_parameters()}
+    prop = getattr(engine.model, "prop", None)
+    built = []
+    if prop is not None:  # count the card's rebuilds of A from per-step edge values
+        real_operator = prop.operator
+        prop.operator = lambda vals=None: built.append(vals is not None) or real_operator(vals)
+    diff = {"loss": 0.0, "parameters": 0.0}
+    try:
+        with DrawReplay() as replay:
+            for s in range(steps):
+                replay.replaying = False
+                loss = float(engine.epoch_fn.run_batches(*(x[s:s + 1] for x in batches), generator=engine.generator))
+                replay.replaying = True
+                cpu_loss = float(cpu_engine.epoch_fn.run_batches(*(x[s:s + 1] for x in batches),
+                                                                 generator=cpu_engine.generator))
+                if replay.queue:
+                    fail(f"{phase}: the CPU's step {s} took {len(replay.queue)} draws fewer than the card's")
+                diff["loss"] = max(diff["loss"], abs(loss - cpu_loss) / max(1.0, abs(cpu_loss)))
+                for name, p in cpu_engine.model.named_parameters():
+                    if p.grad is not None and params[name].grad is not None:
+                        tiny[name] |= torch.maximum(p.grad.abs(), params[name].grad.detach().abs().cpu()) < eps_set
+    finally:
+        if prop is not None:
+            del prop.operator
+    past, past_max, n_elements = 0, 0.0, 0
     for name, p in cpu_engine.model.named_parameters():
-        diff["parameters"] = max(diff["parameters"], float((params[name].detach().cpu() - p.detach()).abs().max()))
-        nu = engine.optimizer.state[params[name]]["nu"].cpu() - cpu_engine.optimizer.state[p]["nu"]
-        diff["nu"] = max(diff["nu"], float(nu.abs().max()))
-    if max(diff.values()) > CMN_CPU_TOL:
-        fail(f"{phase}: {steps} CMN steps differ from the CPU's by {diff} (limit {CMN_CPU_TOL})")
+        d = (params[name].detach().cpu() - p.detach()).abs()
+        excused = (d > tol) & tiny[name]
+        past, n_elements = past + int(excused.sum()), n_elements + d.numel()
+        if excused.any():
+            past_max = max(past_max, float(d[excused].max()))
+        diff["parameters"] = max(diff["parameters"], float(d.masked_fill(excused, 0.0).max()))
+        for key, moment in cpu_engine.optimizer.state.get(p, {}).items():
+            if key != "step":
+                d = float((engine.optimizer.state[params[name]][key].cpu() - moment).abs().max())
+                diff[key] = max(diff.get(key, 0.0), d)
+    lr = float(start.config.model.get("lr", 1e-3))
+    if max(diff.values()) > tol or past > EPS_SET_SHARE * n_elements or past_max > lr * steps:
+        fail(f"{phase}: {steps} steps differ from the CPU's by {diff} (limit {tol}); {past} eps-set elements "
+             f"past it by up to {past_max}")
+    report = (f"; {past} eps-set element(s) of {n_elements} (gradient below {eps_set:g} on both sides at a step) "
+              f"past the limit, by up to {past_max:.3g} (lr x steps {lr * steps:g})" if past else "")
+    return diff, sum(built) / steps, report
+
+
+def describe_steps(diff, tol):
+    return "max |d| " + ", ".join(f"{key} {value:.3g}" for key, value in diff.items()) + f" (limit {tol})"
+
+
+def cmn_steps_match_cpu(phase, start, engine, data, steps=CMN_CPU_STEPS):
+    """``steps`` rmsprop steps of CMN from ``engine``'s initial weights
+    against the same steps through the port on the CPU (``steps_match_cpu``,
+    rmsprop's nu the moment, limit CMN_CPU_TOL)."""
+    diff, _, _ = steps_match_cpu(phase, start, engine, data, steps, CMN_CPU_TOL)
     width = engine.model.item_neighbors.shape[1]
     return (f"{steps} rmsprop steps at emb {engine.model.emb_dim}, {engine.model.hops} hops over neighbourhoods "
-            f"{width} users wide, from the warm-started weights, equal the CPU's on the same batches: max |d| "
-            + ", ".join(f"{key} {value:.3g}" for key, value in diff.items()) + f" (limit {CMN_CPU_TOL})")
+            f"{width} users wide, from the warm-started weights, equal the CPU's on the same batches: "
+            + describe_steps(diff, CMN_CPU_TOL))
 
 
 def memory_training(seed, root_dir, data):
@@ -2187,14 +2350,121 @@ def capped_phases(seed, root_dir):
     return counts
 
 
+# -- the self-supervised graph models (phases 26-27) ----------------------------
+
+
+def ssl_config(name, seed, root_dir, **model):
+    """The shipped config capped at its band's epochs (SSL_FAMILY)."""
+    return shipped_config(SSL_FAMILY[name][1], seed, root_dir, **{"max_epoch": SSL_FAMILY[name][2], **model})
+
+
+def ssl_engine(name, seed, root_dir, data, device=None, **model):
+    """(recommender, engine) at the capped shipped config, built as train()
+    builds them: the weights its training starts from."""
+    rec = SSL_FAMILY[name][0](ssl_config(name, seed, root_dir, **model), device=device)
+    rec.data = data
+    return rec, TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
+
+
+def buir_target_after_one_step(phase, seed, root_dir, data, device=None, **model):
+    """BUIR's target after its first step equals m * initial + (1 - m) *
+    online, the online tables after that step (BUIR_EMA_TOL)."""
+    _, engine = ssl_engine("BUIR", seed, root_dir, data, device, **model)
+    model = engine.model
+    initial = {key: model.target[key].detach().clone() for key in ("user_emb", "item_emb")}
+    if not all(torch.equal(initial[key], model.online[key]) for key in initial):
+        fail(f"{phase}: BUIR's initial target is not a copy of its online encoder")
+    engine.epoch_fn.run_batches(*(x[:1] for x in engine.epoch_fn.form(engine.generator)), generator=engine.generator)
+    m = model.momentum
+    with torch.no_grad():
+        err = max(float((model.target[key] - (initial[key] * m + model.online[key] * (1 - m))).abs().max())
+                  for key in initial)
+        moved = max(float((model.online[key] - initial[key]).abs().max()) for key in initial)
+    if err > BUIR_EMA_TOL or moved == 0:
+        fail(f"{phase}: after one step the target is {err} from m * initial + (1 - m) * online (online moved {moved})")
+    return (f"after one step the target is within {err:.3g} of {m} * initial + {1 - m:.3g} * online (online moved "
+            f"{moved:.3g})")
+
+
+def ssl_training(name, seed, root_dir, data):
+    """One model of phases 26-27: its first steps against the CPU's, its
+    capped training inside the JAX band (held where the band's lower edge
+    reaches UNTRAINED_NDCG, else reported: there the steps hold the model),
+    its serving, and (SGL, BUIR) its first epochs twice bit for bit. Returns
+    the kernels' counts on its path."""
+    phase = f"{name.lower()}-train"
+    start, engine = ssl_engine(name, seed, root_dir, data)
+    diff, rebuilds, eps_set = steps_match_cpu(phase, start, engine, data, SSL_CPU_STEPS, SSL_CPU_TOL, SSL_EPS_SET)
+    band = SSL_BANDS[name]
+    weak = [key for key in band if band[key][0] - 3 * band[key][1] < UNTRAINED_NDCG]
+    log(phase, f"{SSL_CPU_STEPS} Adam steps at emb {engine.model.emb_dim} from the initial weights equal the CPU's on "
+        f"the same batches and draws: {describe_steps(diff, SSL_CPU_TOL)}{eps_set}; dense A's built a step "
+        f"{rebuilds:g}" + (f"; the band's lower edge ({', '.join(weak)}) lies below {UNTRAINED_NDCG}, so these "
+                            "steps are the check that can fail an untrained model" if weak else ""))
+    if name == "BUIR":
+        log(phase, buir_target_after_one_step(phase, seed, root_dir, data))
+    rec, result, res, counts = train_dense(SSL_FAMILY[name][0](ssl_config(name, seed, root_dir)), phase, data)
+    held = band_position if weak else in_band  # a band that cannot fail an untrained model is reported only
+    log(phase, f"(cap {SSL_FAMILY[name][2]} epochs) "
+        + held("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+        + held("test ndcg@10", res["ndcg@10"], band["test"])
+        + ("; reported, not held: the steps above hold this model" if weak else ""))
+    if name == "BUIR":  # as the JAX model, BUIR has no pair score
+        recs = rec.recommend(k=10)
+        torch.cuda.synchronize()
+        check_recommendations(recs, data, 10, data.n_users)
+        try:
+            rec.predict({c: data.test[0][c][:10] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)})
+            fail(f"{phase}: predict() returned scores; the JAX BUIR raises NotImplementedError")
+        except NotImplementedError:
+            log(phase, f"recommend(k=10) {data.n_users} users well-formed, no train item; predict() raises "
+                "NotImplementedError, as the JAX package's")
+    else:
+        check_graph_serving(phase, rec)
+    counts = check_no_kernel(phase)  # since train_dense zeroed them: train(), test() and the serving
+    if name in ("SGL", "BUIR"):
+        repeats_bit_for_bit(name, phase, seed, SSL_REPEAT_EPOCHS, lambda p, epochs: train_dense(
+            SSL_FAMILY[name][0](ssl_config(name, seed, root_dir, max_epoch=epochs)), p, data), flatten_params)
+    if name == "LCFN":
+        t0 = time.perf_counter()
+        again = mf_split().get_graph_embeddings(float(rec.config.model.get("cut_off", 0.2)))
+        secs = time.perf_counter() - t0
+        if not all(torch.equal(torch.as_tensor(a, device=rec.device), b) for a, b in zip(again, (rec.model.P,
+                                                                                                  rec.model.Q))):
+            fail(f"{phase}: P and Q of a second eigendecomposition differ from the trained model's")
+        log(phase, f"a second eigendecomposition on a fresh data object ({secs:.2f} s) gives P {tuple(again[0].shape)} "
+            f"and Q {tuple(again[1].shape)} bit for bit as the main run's")
+    return counts
+
+
+def ssl_phases(seed, root_dir):
+    """Phases 26-27 and one child process profiling their trainings. Returns
+    the kernels' counts by path (all 0)."""
+    data = mf_split()
+    cut_off = float(load_config(os.path.join(REPO, SSL_FAMILY["LCFN"][1])).model.get("cut_off", 0.2))
+    t0 = time.perf_counter()
+    p, q = data.get_graph_embeddings(cut_off)
+    log("lcfn-train", f"LCFN's eigendecomposition on the host: P {p.shape}, Q {q.shape} in "
+        f"{time.perf_counter() - t0:.2f} s (kept on the data object for every later build)")
+    counts = {}
+    for name in SSL_FAMILY:
+        t0 = time.perf_counter()
+        counts[f"{name.lower()}-train"] = ssl_training(name, seed, root_dir, data)
+        log(f"{name.lower()}-train", f"phase took {time.perf_counter() - t0:.2f} s")
+    profiled_in_child(PROFILE_SSL, seed)
+    return counts
+
+
+PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles, in one child process
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles, in one child process
-PROFILED_CAPPED_STEPS = 20  # training steps profiled for each of phases 24-25's models
+PROFILE_SSL = "ssl-models"  # phases 26-27's profiles, in one child process
+PROFILED_CAPPED_STEPS = 20  # training steps profiled for each model of phases 21-22 and 24-27
 
 
 def profile_phase(phase, seed):
-    """``--profile``: the profiled calls of one graph phase, or of phases
-    23-25 together, in this process alone. A profile without CUDA events
-    prints a WARNING line."""
+    """``--profile``: the profiled calls of phases 20-22, 23-25 or 26-27
+    together, in this process alone. A profile without CUDA events prints a
+    WARNING line."""
 
     def report(what, text):
         print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {what}: {text}", flush=True)
@@ -2203,7 +2473,7 @@ def profile_phase(phase, seed):
 
     data = mf_split()
     with tempfile.TemporaryDirectory() as root_dir:
-        if phase == "graph-serve":
+        if phase == PROFILE_GRAPH:
             for name, (cls, _, _) in GRAPH_FAMILY.items():
                 path = graph_checkpoint(name)
                 rec = cls(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
@@ -2211,6 +2481,14 @@ def profile_phase(phase, seed):
                 rec.recommend(k=10)
                 report(f"{name} test()", device_breakdown(rec.test))
                 report(f"{name} recommend()", device_breakdown(lambda: rec.recommend(k=10)))
+            for name, (cls, _, _) in GRAPH_FAMILY.items():
+                rec = cls(graph_config(name, seed, root_dir))
+                rec.data = data
+                engine = TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
+                trainer = engine.epoch_fn
+                trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
+                report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, engine.generator,
+                                                                           PROFILED_CAPPED_STEPS, top=8))
             return
         if phase == PROFILE_CAPPED:
             path = os.path.join(REPO, "parity_runs/checkpoints", ULTRAGCN_CHECKPOINT)
@@ -2235,11 +2513,14 @@ def profile_phase(phase, seed):
                 if name == "CMN":
                     report("CMN test()", device_breakdown(rec.test))
             return
-        name = {"lightgcn-train": "LightGCN", "ngcf-train": "NGCF"}[phase]
-        rec = GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, max_epoch=1))
-        rec.train(data)  # one epoch to warm up
-        trainer = rec.engine.epoch_fn
-        report("one epoch", profile_window(trainer, rec.engine.generator, trainer.num_batches, top=8))
+        if phase == PROFILE_SSL:
+            for name in SSL_FAMILY:
+                _, engine = ssl_engine(name, seed, root_dir, data)
+                trainer = engine.epoch_fn
+                trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
+                report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, engine.generator,
+                                                                           PROFILED_CAPPED_STEPS, top=8))
+            return
 
 
 def main():
@@ -2249,9 +2530,8 @@ def main():
                         help="run only the ring kernel and the sharded MF phases (11-16)")
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
-    parser.add_argument("--profile", choices=["graph-serve", "lightgcn-train", "ngcf-train", PROFILE_CAPPED],
-                        help="profile one graph phase, or phases 23-25, in this process alone (the phases "
-                        "run it)")
+    parser.add_argument("--profile", choices=[PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL],
+                        help="profile phases 20-22, 23-25 or 26-27 in this process alone (the phases run it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2361,7 +2641,8 @@ def main():
         ncf_phases(args.seed, root_dir)
         graph_counts = graph_phases(args.seed, root_dir)
         graph_counts.update(capped_phases(args.seed, root_dir))
-    for path, counts in graph_counts.items():  # phases 17-25: every count 0 (check_no_kernel)
+        graph_counts.update(ssl_phases(args.seed, root_dir))
+    for path, counts in graph_counts.items():  # phases 17-27: every count 0 (check_no_kernel)
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

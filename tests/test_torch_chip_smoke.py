@@ -264,3 +264,98 @@ def test_profile_window_forms_the_batches_inside_it(name, tmp_path, monkeypatch)
     monkeypatch.setattr(trainer, "run_batches", lambda *a, **k: calls.append(a[0].shape) or run_batches(*a, **k))
     assert chip_smoke.profile_window(trainer, generator, 3) == "profiled"
     assert seen["drew"] and seen["steps"] == 3 and np.isfinite(seen["loss"]) and calls == [(3, trainer.batch_size)]
+
+
+@pytest.mark.parametrize("name,layers", [("SimGCL", ("n_layer", 3)), ("SGL", ("n_layers", 3)),
+                                         ("BUIR", ("n_layers", 3)), ("LCFN", ("layer", 1))])
+def test_ssl_config_is_the_shipped_config_at_its_cap(name, layers):
+    cfg = chip_smoke.ssl_config(name, 3, "/nowhere")
+    m = cfg.model
+    assert (cfg.system.seed, cfg.dataset.dataset, cfg.dataset.n_test) == (3, "synthetic_structured", 1)
+    assert (m.model, m.emb_dim, m.batch_size, m.optimizer, m.lr) == (name, 64, 1024, "adam", 0.001)
+    assert m.get(layers[0]) == layers[1] and m.max_epoch == chip_smoke.SSL_FAMILY[name][2]
+    assert chip_smoke.ssl_config(name, 3, "/x", max_epoch=2).model.max_epoch == 2
+    band = chip_smoke.SSL_BANDS[name]
+    assert set(band) == {"valid", "test"} and all(0 < mean < 1 and 0 < std < 0.1 for mean, std in band.values())
+    # Only BUIR's band can fail an untrained model; the other three are held by their steps.
+    weak = any(mean - 3 * std < chip_smoke.UNTRAINED_NDCG for mean, std in band.values())
+    assert weak == (name != "BUIR")
+
+
+def test_band_position_reports_without_failing():
+    assert chip_smoke.band_position("ndcg", 0.2, (0.2, 0.01)) == "ndcg 0.200000 in [0.1700, 0.2300]"
+    assert "OUTSIDE [0.1700, 0.2300]" in chip_smoke.band_position("ndcg", 0.2301, (0.2, 0.01))
+
+
+@pytest.mark.parametrize("name", ["SGL", "SimGCL"])
+def test_steps_match_cpu_hands_the_card_draws_to_the_cpu(name, tmp_path, monkeypatch):
+    """Both runs on the CPU at a narrow width: with the draws replayed they
+    agree within the limit, each run draws anew without the replay (so the
+    steps differ), SGL builds two dense A's a step, and a limit below 0
+    fails. The draw functions come back after the block."""
+    data = chip_smoke.mf_split()
+    start, engine = chip_smoke.ssl_engine(name, 0, str(tmp_path), data, "cpu", emb_dim=4)
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    real = (chip_smoke.sgl_model.sgl_draws, chip_smoke.simgcl_model.perturbation_noise)
+    diff, rebuilds, _ = chip_smoke.steps_match_cpu(f"{name}-train", start, engine, data, 2, chip_smoke.SSL_CPU_TOL)
+    assert (chip_smoke.sgl_model.sgl_draws, chip_smoke.simgcl_model.perturbation_noise) == real
+    assert set(diff) == {"loss", "parameters", "exp_avg", "exp_avg_sq"} and max(diff.values()) < 1e-5
+    assert rebuilds == (2 if name == "SGL" else 0)
+    assert any(not torch.equal(before[k], v) for k, v in engine.model.state_dict().items())  # the steps ran
+
+    class NoReplay(chip_smoke.DrawReplay):
+        def __enter__(self):
+            return self
+
+    monkeypatch.setattr(chip_smoke, "DrawReplay", NoReplay)
+    monkeypatch.setattr(chip_smoke, "fail", lambda msg: (_ for _ in ()).throw(AssertionError(msg)))
+    with pytest.raises(AssertionError, match="steps differ from the CPU's"):
+        chip_smoke.steps_match_cpu(f"{name}-train", start, engine, data, 1, chip_smoke.SSL_CPU_TOL)
+    monkeypatch.undo()
+    with pytest.raises(SystemExit):
+        chip_smoke.steps_match_cpu(f"{name}-train", start, engine, data, 1, -1.0)
+
+
+def test_buir_target_after_one_step_is_its_ema(tmp_path, monkeypatch):
+    data = chip_smoke.mf_split()
+    report = chip_smoke.buir_target_after_one_step("buir-train", 0, str(tmp_path), data, "cpu", emb_dim=4)
+    assert "0.995 * initial + 0.005 * online" in report
+    from beta_recsys_tpu_torch.models.buir import BUIR
+
+    monkeypatch.setattr(BUIR, "post_update", lambda self: None)  # a trainer without the hook fails the check
+    with pytest.raises(SystemExit):
+        chip_smoke.buir_target_after_one_step("buir-train", 0, str(tmp_path), data, "cpu", emb_dim=4)
+
+
+@pytest.mark.parametrize("where,passes", [((0, 0), True), ((0, 1), False)])
+def test_steps_match_cpu_excuses_only_eps_set_elements(where, passes, tmp_path, monkeypatch):
+    """An element whose gradient is 0 on both sides (set below eps after each
+    step) may pass the limit; the same difference at an element with a
+    gradient fails."""
+    from beta_recsys_tpu_torch.core.train_engine import DenseEpochTrainer
+
+    data = chip_smoke.mf_split()
+    start, engine = chip_smoke.ssl_engine("SimGCL", 0, str(tmp_path), data, "cpu", emb_dim=4)
+    real_step = DenseEpochTrainer.step
+
+    def step(self, *args):
+        loss = real_step(self, *args)
+        self.model.user_emb.grad[0, 0] = 0.0
+        return loss
+
+    monkeypatch.setattr(DenseEpochTrainer, "step", step)
+    real_run = engine.epoch_fn.run_batches
+
+    def card_run(*args, **kwargs):
+        loss = real_run(*args, **kwargs)
+        with torch.no_grad():
+            engine.model.user_emb[where] += 5e-5
+        return loss
+
+    monkeypatch.setattr(engine.epoch_fn, "run_batches", card_run)
+    if passes:
+        diff, _, report = chip_smoke.steps_match_cpu("simgcl-train", start, engine, data, 2, 1e-5, 1e-7)
+        assert diff["parameters"] < 1e-5 and report.startswith("; 1 eps-set element(s) of ")
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.steps_match_cpu("simgcl-train", start, engine, data, 2, 1e-5, 1e-7)

@@ -32,6 +32,13 @@ for name in chip_smoke.GRAPH_FAMILY:
     chip_smoke.graph_config(name, 0, "unused", max_epoch=1)
 for name in chip_smoke.CAPPED_FAMILY:
     chip_smoke.capped_config(name, 0, "unused")
+for name in chip_smoke.SSL_FAMILY:
+    chip_smoke.ssl_config(name, 0, "unused")
+chip_smoke.DrawReplay()
+from beta_recsys_tpu_torch.ops.graph import sgl_augment, sgl_draws, undirected_pairs
+edge_pair, n_pairs = undirected_pairs([0, 1], [1, 0])
+sgl_augment(sgl_draws(None, n_pairs, "cpu"), chip_smoke.torch.tensor([0, 1]), chip_smoke.torch.tensor([1, 0]),
+            chip_smoke.torch.as_tensor(edge_pair), 2)
 from beta_recsys_tpu_torch.core.train_engine import OptaxRMSprop
 from beta_recsys_tpu_torch.models.cmn import build_item_neighborhoods
 from beta_recsys_tpu_torch.ops.ultragcn_prep import get_ii_constraint_mat
@@ -121,3 +128,15 @@ def test_graph_recommenders_and_propagators_default_to_cuda(monkeypatch, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pack_propagator([0], [1], [1.0], 2)
     assert pack_propagator([0], [1], [1.0], 2, device="cpu").dense.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["SimGCL", "SGL", "BUIR", "LCFN"])
+def test_ssl_recommenders_default_to_cuda(monkeypatch, name):
+    from beta_recsys_tpu_torch import recommenders
+
+    cls = getattr(recommenders, name)
+    config = {"model": {"model": cls.model_name}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(config)
+    assert cls(config, device="cpu").device == torch.device("cpu")
