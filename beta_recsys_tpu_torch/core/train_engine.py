@@ -1,12 +1,17 @@
 """Training engine: epoch trainers, early stop and checkpoints.
 
 Counterpart of ``beta_recsys_tpu/core/train_engine.py`` on one device for the
-pairwise (BPR), multineg (``num_neg`` negatives a positive), pointwise (BCE)
-and sequence (SASRec) batch kinds: ``make_optimizer`` (optax's sgd, adam and
-rmsprop), ``make_negative_sampler``, ``_padded_order``, the dense pairwise,
-multineg and pointwise trainers (``make_epoch_fn``), the sequence trainer
-(``SequenceEpochTrainer``, the counterpart of ``make_sequence_epoch_fn``)
-and ``TrainEngine`` (``build``, ``train``, ``save_checkpoint``). Models
+pairwise (BPR), multineg (``num_neg`` negatives a positive), pointwise (BCE),
+sequence (SASRec), sequence_time (TiSASRec), prefix (NARM) and userrow
+(VAECF) batch kinds: ``make_optimizer`` (optax's sgd, adam and rmsprop),
+``make_negative_sampler``, ``_padded_order``, the dense pairwise, multineg
+and pointwise trainers (``make_epoch_fn``), the sequence trainers
+(``SequenceEpochTrainer`` and ``SequenceTimeEpochTrainer``, the
+counterparts of ``make_sequence_epoch_fn`` and
+``make_sequence_time_epoch_fn``), the permutation trainers
+(``PrefixEpochTrainer`` and ``UserRowEpochTrainer``, of
+``make_prefix_epoch_fn`` and ``make_userrow_epoch_fn``) and ``TrainEngine``
+(``build``, ``train``, ``save_checkpoint``). Models
 with a row protocol and ``"sparse_optim": true`` train through the
 lazy-Adam trainer of ``core/sparse_optim.py``; with ``system.mesh`` through
 its row-sharded counterpart on a device mesh (``ShardedSparseEpochTrainer``),
@@ -349,14 +354,103 @@ class SequenceEpochTrainer:
             total += self.step(rows[b], users[b], neg0[b], generator)
         return total / rows.shape[0]
 
-    def step(self, rows, users, neg0, generator):
+    def batch(self, rows, users, neg0):
         pos = self.pos[rows]
-        batch = {"users": users, "seq": self.seq[rows], "pos": pos, "neg": torch.where(pos != 0, neg0 + 1, 0)}
+        return {"users": users, "seq": self.seq[rows], "pos": pos, "neg": torch.where(pos != 0, neg0 + 1, 0)}
+
+    def step(self, rows, users, neg0, generator):
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss(batch, generator)
+        loss = self.model.loss(self.batch(rows, users, neg0), generator)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+
+class SequenceTimeEpochTrainer(SequenceEpochTrainer):
+    """``SequenceEpochTrainer`` whose batches also carry each row's (maxlen,
+    maxlen) clipped interval matrix (``seq_arrays["time_matrix"]``, from
+    ``SequentialData.tisasrec_arrays``): the counterpart of
+    ``make_sequence_time_epoch_fn`` (TiSASRec)."""
+
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler):
+        super().__init__(model, optimizer, seq_arrays, batch_size, neg_sampler)
+        self.time_matrix = torch.as_tensor(seq_arrays["time_matrix"], dtype=torch.long, device=self.device)
+
+    def batch(self, rows, users, neg0):
+        return {**super().batch(rows, users, neg0), "time_matrix": self.time_matrix[rows]}
+
+
+class PermutationEpochTrainer:
+    """Each epoch draws a permutation of the ``n`` examples, wraps it to
+    ceil(n / B) batches of ``B`` (``_padded_order``) and takes one optimizer
+    step a batch; every parameter updates through ``optimizer`` from
+    ``model.loss(self.batch(order), generator)``, whose draws (dropout,
+    latent noise) come from the epoch's generator.
+
+    ``run(generator)`` forms the epoch's order and trains on it;
+    ``run_batches(order, generator=None)`` trains on a given (num_batches,
+    B) order. Both return the mean batch loss as a 0-d device tensor."""
+
+    def __init__(self, model, optimizer, n, batch_size, what):
+        self.model = model
+        self.optimizer = optimizer
+        self.device = next(model.parameters()).device
+        self.n = int(n)
+        if self.n == 0:
+            raise ValueError(f"empty training set for {what}")
+        self.batch_size = min(int(batch_size), self.n)
+        self.num_batches = -(-self.n // self.batch_size)
+        self.padded_size = self.num_batches * self.batch_size
+
+    def form(self, generator):
+        """(order,): (num_batches, B) example ids, on the device."""
+        perm = torch.randperm(self.n, generator=generator, device=self.device)
+        return (_padded_order(perm, self.padded_size).view(self.num_batches, self.batch_size),)
+
+    def run(self, generator):
+        """Form this epoch's order and train on it; the mean batch loss."""
+        return self.run_batches(*self.form(generator), generator=generator)
+
+    def run_batches(self, order, generator=None):
+        order = torch.as_tensor(order, dtype=torch.long, device=self.device)
+        total = torch.zeros((), device=self.device)
+        for b in range(order.shape[0]):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.model.loss(self.batch(order[b]), generator)
+            loss.backward()
+            self.optimizer.step()
+            total += loss.detach()
+        return total / order.shape[0]
+
+    def batch(self, order):
+        raise NotImplementedError
+
+
+class PrefixEpochTrainer(PermutationEpochTrainer):
+    """(prefix, target) session examples (``SequentialData
+    .prefix_target_arrays``), a batch {"seq", "target"}: the counterpart of
+    ``make_prefix_epoch_fn`` (NARM)."""
+
+    def __init__(self, model, optimizer, arrays, batch_size):
+        self.seq = torch.as_tensor(arrays["seq"], dtype=torch.long, device=next(model.parameters()).device)
+        self.target = torch.as_tensor(arrays["target"], dtype=torch.long, device=self.seq.device)
+        super().__init__(model, optimizer, self.seq.shape[0], batch_size, "prefix/target examples")
+
+    def batch(self, order):
+        return {"seq": self.seq[order], "target": self.target[order]}
+
+
+class UserRowEpochTrainer(PermutationEpochTrainer):
+    """Rows of the (n_users, n_items) binarized interaction matrix, a batch
+    {"rows", "users"}: the counterpart of ``make_userrow_epoch_fn``
+    (VAECF)."""
+
+    def __init__(self, model, optimizer, user_rows, batch_size):
+        self.rows = torch.as_tensor(user_rows, dtype=torch.float32, device=next(model.parameters()).device)
+        super().__init__(model, optimizer, self.rows.shape[0], batch_size, "user rows")
+
+    def batch(self, order):
+        return {"rows": self.rows[order], "users": order}
 
 
 class TrainEngine:
@@ -459,6 +553,24 @@ class TrainEngine:
                 model, self.optimizer, data.train_seq_arrays(model.maxlen),
                 int(model_cfg.get("batch_size", 128)), neg_sampler,
             )
+        elif kind == "sequence_time":
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = SequenceTimeEpochTrainer(
+                model, self.optimizer, data.tisasrec_arrays(model.maxlen, model.time_span),
+                int(model_cfg.get("batch_size", 128)), neg_sampler,
+            )
+        elif kind == "prefix":
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = PrefixEpochTrainer(
+                model, self.optimizer, data.prefix_target_arrays(int(model_cfg.get("maxlen", 19))),
+                int(model_cfg.get("batch_size", 128)),
+            )
+        elif kind == "userrow":
+            rows = model.artifacts.get("user_rows")
+            if rows is None:
+                rows = (np.asarray(data.user_item_csr().todense()) > 0).astype(np.float32)
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = UserRowEpochTrainer(model, self.optimizer, rows, int(model_cfg.get("batch_size", 256)))
         else:  # a parameter without requires_grad (BUIR's target) moves by post_update alone
             self.optimizer = make_optimizer(model_cfg, [p for p in model.parameters() if p.requires_grad])
             num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))

@@ -6,13 +6,16 @@ from .lightgcn import LightGCN
 from .mf import MF
 from .mixgcf import MixGCF
 from .mlp import MLP
+from .narm import NARM
 from .ncf import NeuMF
 from .ngcf import NGCF
 from .pairwise_gmf import PairwiseGMF
 from .sasrec import SASRec
 from .sgl import SGL
 from .simgcl import SimGCL
+from .tisasrec import TiSASRec
 from .ultragcn import UltraGCN
+from .vaecf import VAECF
 
 # The JAX registry's names for the ported models (beta_recsys_tpu/models/__init__.py).
 MODELS = {
@@ -20,7 +23,8 @@ MODELS = {
     "LightGCN": LightGCN, "lightgcn": LightGCN, "NGCF": NGCF, "ngcf": NGCF, "PairwiseGMF": PairwiseGMF,
     "CMN": CMN, "cmn": CMN, "UltraGCN": UltraGCN, "ultragcn": UltraGCN, "MixGCF": MixGCF, "mixgcf": MixGCF,
     "SGL": SGL, "sgl": SGL, "SimGCL": SimGCL, "simgcl": SimGCL, "BUIR": BUIR, "buir": BUIR,
-    "LCFN": LCFN, "lcfn": LCFN,
+    "LCFN": LCFN, "lcfn": LCFN, "TiSASRec": TiSASRec, "tisasrec": TiSASRec, "NARM": NARM, "narm": NARM,
+    "VAECF": VAECF, "vaecf": VAECF,
 }
 
 

@@ -31,6 +31,38 @@ def _params(device, **shapes):
     )
 
 
+def attention_blocks(d, num_blocks, device):
+    """(blocks, last_ln): ``num_blocks`` of {attn_ln, attn, ffn_ln, ffn}
+    parameters and the final LN's, the JAX tree's ``blocks`` and
+    ``last_ln``."""
+    blocks = nn.ModuleList(
+        nn.ModuleDict(
+            {
+                "attn_ln": _params(device, scale=(d,), bias=(d,)),
+                "attn": _params(device, wq=(d, d), wk=(d, d), wv=(d, d), wo=(d, d)),
+                "ffn_ln": _params(device, scale=(d,), bias=(d,)),
+                "ffn": _params(device, w1=(d, d), b1=(d,), w2=(d, d), b2=(d,)),
+            }
+        )
+        for _ in range(num_blocks)
+    )
+    return blocks, _params(device, scale=(d,), bias=(d,))
+
+
+@torch.no_grad()
+def init_attention_blocks(blocks, last_ln, generator):
+    """Xavier-uniform projections drawn in order on the host, zero biases
+    and unit LN scales."""
+    for name, p in [*blocks.named_parameters(), *last_ln.named_parameters()]:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.startswith("w"):
+            p.copy_(nn.init.xavier_uniform_(torch.empty(p.shape), generator=generator))
+        elif leaf.startswith("b"):
+            p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
+
+
 class SASRec(RecModel):
     batch_kind = "sequence"
 
@@ -47,18 +79,7 @@ class SASRec(RecModel):
         d, dev = self.emb_dim, self.device
         self.item_emb = nn.Parameter(torch.empty(n_items + 1, d, device=dev))
         self.pos_emb = nn.Parameter(torch.empty(self.maxlen, d, device=dev))
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict(
-                {
-                    "attn_ln": _params(dev, scale=(d,), bias=(d,)),
-                    "attn": _params(dev, wq=(d, d), wk=(d, d), wv=(d, d), wo=(d, d)),
-                    "ffn_ln": _params(dev, scale=(d,), bias=(d,)),
-                    "ffn": _params(dev, w1=(d, d), b1=(d,), w2=(d, d), b2=(d,)),
-                }
-            )
-            for _ in range(self.num_blocks)
-        )
-        self.last_ln = _params(dev, scale=(d,), bias=(d,))
+        self.blocks, self.last_ln = attention_blocks(d, self.num_blocks, dev)
         ctx = self.artifacts.get("ctx")
         self.ctx = None if ctx is None else torch.as_tensor(ctx, device=dev)
 
@@ -76,14 +97,7 @@ class SASRec(RecModel):
         draw(self.item_emb, lambda t: t.normal_(0.0, self.stddev, generator=generator))
         self.item_emb[0] = 0.0
         draw(self.pos_emb, lambda t: t.normal_(0.0, self.stddev, generator=generator))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.startswith("w"):
-                draw(p, lambda t: nn.init.xavier_uniform_(t, generator=generator))
-            elif leaf.startswith("b"):
-                p.zero_()
-            elif leaf == "scale":
-                p.fill_(1.0)
+        init_attention_blocks(self.blocks, self.last_ln, generator)
         return self
 
     def with_context(self, ctx):

@@ -6,6 +6,8 @@ rule: no generator, no dropout. With a ``torch.Generator`` each dropout
 draws from it in call order; ``dropout_mask`` is the one place a mask is
 drawn outside the attention core, whose mask is the Philox mask of
 ``kernels/philox.py`` keyed on a seed drawn from the same generator.
+``relu_keep`` is the one place the FFN's ReLU decides which entries pass,
+so a check can hand one device's decisions to another, as it hands masks.
 """
 
 import torch
@@ -34,10 +36,17 @@ def inverted_dropout(generator, x, rate):
     return torch.where(keep, x / (1 - rate), 0.0)
 
 
+def relu_keep(z):
+    """Bool: the entries of ``z`` that ReLU passes (z > 0)."""
+    return z > 0
+
+
 def pointwise_ffn(x, p, dropout_rate=0.0, generator=None):
     """Conv1d(k=1) -> ReLU -> [dropout] -> Conv1d(k=1) -> [dropout] with
-    residual."""
-    h = inverted_dropout(generator, torch.relu(x @ p["w1"] + p["b1"]), dropout_rate)
+    residual. The ReLU is ``where(relu_keep(z), z, 0)``: the same values and
+    gradient as ``torch.relu``."""
+    z = x @ p["w1"] + p["b1"]
+    h = inverted_dropout(generator, torch.where(relu_keep(z), z, 0.0), dropout_rate)
     h = inverted_dropout(generator, h @ p["w2"] + p["b2"], dropout_rate)
     return x + h
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
 NeuMF, LightGCN, NGCF, PairwiseGMF, CMN, UltraGCN, MixGCF, SimGCL, SGL,
-BUIR, LCFN and SASRec are ported so far.
+BUIR, LCFN, SASRec, TiSASRec, NARM and VAECF are ported so far.
 """
+
+import numpy as np
 
 from ..convert import (
     gmf_params_from_jax,
@@ -186,3 +188,50 @@ class SASRec(Recommender):
     def test_model(self):
         test_ctx = self.data.eval_context(self._maxlen(), extra_df=self.data.valid[0])
         return self.model.with_context(test_ctx)
+
+
+class TiSASRec(Recommender):
+    """TiSASRec: each user's train sequence and its clipped time intervals
+    are the scoring context; the final test and recommend() extend both
+    with the user's validation items (``tisasrec_eval_context``)."""
+
+    model_name = "TiSASRec"
+    data_class = SequentialData
+
+    def _spans(self):
+        return int(self.config.model.get("maxlen", 50)), int(self.config.model.get("time_span", 256))
+
+    def build_artifacts(self, data):
+        ctx, ctx_time = data.tisasrec_eval_context(*self._spans())
+        return {"ctx": ctx, "ctx_time": ctx_time}
+
+    def test_model(self):
+        return self.model.with_context(*self.data.tisasrec_eval_context(*self._spans(), extra_df=self.data.valid[0]))
+
+
+class NARM(Recommender):
+    """NARM on (prefix, target) examples; scoring encodes each user's last
+    ``maxlen`` train items, and the final test and recommend() the
+    train+valid context."""
+
+    model_name = "NARM"
+    data_class = SequentialData
+
+    def _maxlen(self):
+        return int(self.config.model.get("maxlen", 19))
+
+    def build_artifacts(self, data):
+        return {"ctx": data.eval_context(self._maxlen())}
+
+    def test_model(self):
+        return self.model.with_context(self.data.eval_context(self._maxlen(), extra_df=self.data.valid[0]))
+
+
+class VAECF(Recommender):
+    """VAE-CF over each user's binarized train row (float32 0/1)."""
+
+    model_name = "VAECF"
+
+    def build_artifacts(self, data):
+        rows = np.asarray(data.user_item_csr().todense(), dtype=np.float32)
+        return {"user_rows": (rows > 0).astype(np.float32)}

@@ -17,8 +17,9 @@ Phases, each printed with the seconds elapsed:
      kernel, its time on the device) and the least time the card could take;
   3. train MF + BPR (configs/mf_default.json, lazy Adam, row_update "fused")
      on the structured synthetic split through MatrixFactorization(cfg)
-     .train(data): 1 fused_rowadam launch a step, best valid and test
-     ndcg@10 inside the JAX package's band; then test() and recommend();
+     .train(data), capped at MF_SPARSE_EPOCHS: 1 fused_rowadam launch a
+     step, best valid and test ndcg@10 inside the JAX package's band at
+     that cap; then test() and recommend();
   4. train MF with the dense trainer (mf_default.json as it is): test
      ndcg@10 inside the JAX package's band;
   5. serve the JAX-trained MF checkpoint: test() gives the JAX metrics;
@@ -58,12 +59,13 @@ Phases, each printed with the seconds elapsed:
      port on the CPU; users/s of test() and recommend();
  18. train GMF, MLP and NCF at their shipped configs (BCE on 4 sampled
      negatives a positive, batch 400, Adam at lr 1e-3) on the structured
-     split through XRecommender(cfg).train(data), seed 0, to early stop:
-     best valid and test ndcg@10 inside the JAX package's ten-seed bands,
+     split through XRecommender(cfg).train(data), seed 0, capped at
+     NCF_EPOCHS: best valid and test ndcg@10 inside the JAX package's
+     ten-seed bands at that cap,
      NCF's first 3 epochs twice, bit for bit; examples/s and a profiled
      window each (an epoch's batch forming and 50 steps);
  19. NCF warm-started from phase 18's MLP and a GMF trained as in phase 18
-     at NCF's width (emb 8; the shipped GMF is 64 wide) for 20 epochs, for
+     at NCF's width (emb 8; the shipped GMF is 64 wide) for 10 epochs, for
      5 epochs (neither holds a band): NCF starts from
      their tables and layers bit for bit; its metrics are printed. Phases
      17-19 launch none of the kernels (every count read 0 around each);
@@ -78,8 +80,8 @@ Phases, each printed with the seconds elapsed:
      best valid and test ndcg@10 inside the JAX package's ten-seed bands;
      its first 3 epochs twice, bit for bit; positives/s;
  22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
-     Phases 20-22 launch none of the kernels and profile in one child
-     process (``--profile graph-models``: a test() and a recommend() of each
+     Phases 20-22 launch none of the kernels and are profiled
+     (``--profile graph-models``: a test() and a recommend() of each
      checkpoint; an epoch's batch forming and 20 steps of each model after
      5 to warm up), printing a WARNING where the profiler recorded no CUDA
      events;
@@ -100,8 +102,8 @@ Phases, each printed with the seconds elapsed:
      first 5 steps equal the same steps through the port on the CPU (1e-5:
      the loss, every parameter, rmsprop's nu), its first 2 epochs twice bit
      for bit, and the peak device memory of its test() (scored in blocks of
-     pairs). Phases 23-25 launch none of the kernels and profile in one
-     child process (``--profile capped-models``: UltraGCN's test() and
+     pairs). Phases 23-25 launch none of the kernels and are profiled
+     (``--profile capped-models``: UltraGCN's test() and
      recommend(), an epoch's batch forming and 20 steps of each model after
      5 to warm up, and CMN's test()); positives/s of every training;
  26. SimGCL and SGL (both_side InfoNCE over two views of edge dropout a
@@ -120,22 +122,47 @@ Phases, each printed with the seconds elapsed:
      BUIR's target after one step equal to m * initial + (1 - m) * online
      (1e-7), its predict() raising as the JAX package's; SGL's and BUIR's first 2 epochs twice, bit for
      bit; LCFN's P and Q from a second eigendecomposition on a fresh data
-     object bit for bit. Phases 26-27 launch none of the kernels and
-     profile in one child process (``--profile ssl-models``: an epoch's
+     object bit for bit. Phases 26-27 launch none of the kernels and are
+     profiled (``--profile ssl-models``: an epoch's
      batch forming and 20 steps of each model after 5 to warm up);
      positives/s of every training;
- 28. a JSON line of every kernel with its launches on each path, counted
+ 28. TiSASRec at its shipped config (emb 64, 2 blocks, maxlen 50, time_span
+     256, dropout 0.2, batch 128) through TiSASRec(cfg).train(data) on the
+     structured split, seed 0, capped at SEQ_FAMILY's epochs: its first 5
+     steps from the initial weights on the card against the same steps
+     through the port on the CPU with the same batches, dropout masks and
+     FFN ReLU decisions (1e-5: the loss, every parameter but Adam's eps-set
+     elements, Adam's moments), its JAX ten-seed band reported (it reaches
+     below UNTRAINED_NDCG), its first 2 epochs twice bit for bit, and
+     test(), predict() and recommend(k=10) of the trained model against the
+     same checkpoint served by the port on the CPU (metrics 1e-5, predict()
+     1e-6 relative to max(1, |score|), the top-10 lists); sequences/s,
+     test()'s peak device memory;
+ 29. NARM at its shipped config (emb 50, hidden 100, maxlen 19, batch 512)
+     the same way without the steps: its band held, its first 2 epochs
+     twice bit for bit; examples/s;
+ 30. serve the JAX-trained seed-0 VAECF checkpoint: load -> test() ->
+     predict() -> recommend(k=10), test() reproducing the JAX package's
+     metrics to 1e-4 and the port's on the CPU; then VAECF (z 10, encoder
+     [20], mult) trained to early stop inside its band, its first 3 epochs
+     twice bit for bit. Phases 28-30 launch none of the kernels and are
+     profiled (``--profile seq-models``: an epoch's batch forming and 20
+     steps of each model after 5 to warm up). The profiles of phases 20-30
+     run in one child process after phase 30 (``--profile graph-models
+     capped-models ssl-models seq-models``);
+ 31. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
-drives no path); with --profile <phase>, only that graph phase's (or
-phases 23-25's, or 26-27's) profiles and no result line. Imports nothing of JAX or of the JAX package.
+drives no path); with --profile <phase> ..., only those phases' profiles
+and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
 import collections
+import copy
 import json
 import os
 import subprocess
@@ -179,6 +206,8 @@ from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
 from beta_recsys_tpu_torch.models import build_model  # noqa: E402
 from beta_recsys_tpu_torch.models import sgl as sgl_model  # noqa: E402
 from beta_recsys_tpu_torch.models import simgcl as simgcl_model  # noqa: E402
+from beta_recsys_tpu_torch.models import vaecf as vaecf_model  # noqa: E402
+from beta_recsys_tpu_torch.ops import attention as port_attention  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
     flash_causal_attention_bwd,
@@ -198,8 +227,10 @@ from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     BUIR,
     CMN,
     LCFN,
+    NARM,
     NGCF,
     SGL,
+    VAECF,
     GMFRecommender,
     LightGCN,
     MatrixFactorization,
@@ -209,6 +240,7 @@ from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     PairwiseGMFRecommender,
     SASRec,
     SimGCL,
+    TiSASRec,
     UltraGCN,
 )
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
@@ -245,6 +277,11 @@ EXPECTED_MF_METRICS = {
 # 0.0036). Dense, seeds 0-2: PARITY_RESULTS.md, MF row.
 SPARSE_BAND = {"valid": (0.20631387680768967, 0.002780269790554314),
                "test": (0.1743064731359482, 0.0070542290529480465)}
+# Phase 3 runs MF_SPARSE_EPOCHS epochs (the JAX seeds' best epochs are 12-44
+# of 33-65 run to early stop), against the same seeds read at that cap.
+MF_SPARSE_EPOCHS = 30
+SPARSE_BAND_AT_CAP = {"valid": (0.2054387226700783, 0.003710978058973611),
+                      "test": (0.1731438159942627, 0.0056946881739343876)}
 DENSE_BAND = {"test": (0.1893, 0.0097)}
 # (mean, std) of SASRec's best valid and test ndcg@10 over seeds 0-9 of the
 # JAX package's training at the trained checkpoint's config on the same
@@ -327,18 +364,20 @@ EXPECTED_NCF_METRICS = {
     "NCF": {"ndcg@10": 0.126206, "recall@10": 0.340403, "precision@10": 0.034040, "map@10": 0.064365},
 }
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
-# package's training at each shipped config on the structured split:
-# `JAX_PLATFORMS=cpu python port_tools/jax_ncf_band.py`. A port run must land
-# within mean +- 3 std.
+# package's training at each shipped config on the structured split, read at
+# NCF_EPOCHS (the runs' best epochs are 4-25, early stop at 25-46; only
+# MLP's seed 5 is best after 20): `JAX_PLATFORMS=cpu python
+# port_tools/jax_ncf_band.py`. A port run must land within mean +- 3 std.
+NCF_EPOCHS = 20  # phase 18's trainings
 NCF_BANDS = {
     "GMF": {"valid": (0.14416029453277587, 0.0023161275649824075),
             "test": (0.12286070138216018, 0.002249093758183809)},
-    "MLP": {"valid": (0.15576801598072051, 0.007593574319172472),
-            "test": (0.13140337765216828, 0.0032208028916154204)},
+    "MLP": {"valid": (0.15575653612613677, 0.007594710824414818),
+            "test": (0.13141448348760604, 0.0032171887666182382)},
     "NCF": {"valid": (0.15180849134922028, 0.004850082781757105),
             "test": (0.12909825518727303, 0.005508611261360261)},
 }
-GMF_PRETRAIN_EPOCHS = 20  # phase 19's GMF at NCF's width
+GMF_PRETRAIN_EPOCHS = 10  # phase 19's GMF at NCF's width
 NCF_WARM_EPOCHS = 5  # phase 19's warm-started NeuMF
 # The graph models: each recommender, shipped config and JAX-trained seed-0
 # checkpoint.
@@ -444,6 +483,41 @@ BUIR_EMA_TOL = 1e-7  # BUIR's target after one step against m * initial + (1 - m
 # each within lr a step.
 SSL_EPS_SET = 1e-7
 EPS_SET_SHARE = 1e-4
+# The sequential and VAE models (phases 28-30): each recommender, shipped
+# config and the epochs its training runs (the cap its JAX band is read at;
+# VAECF runs to early stop inside its config's 200 epochs).
+SEQ_FAMILY = {
+    "TiSASRec": (TiSASRec, "configs/tisasrec_default.json", 10),
+    "NARM": (NARM, "configs/narm_default.json", 5),
+    "VAECF": (VAECF, "configs/vaecf_default.json", 200),
+}
+# (mean, sample std) of best valid and test() ndcg@10 over seeds 0-9 of the
+# JAX package's training at each shipped config on the structured split, in
+# runs as long as SEQ_FAMILY's caps (10 and 5 epochs; VAECF's to early stop):
+# `JAX_PLATFORMS=cpu python port_tools/jax_seq_band.py`. A sequence model's
+# test() scores against the train+valid context, the per-epoch test
+# evaluator against the train context alone, so a cap is a whole run.
+SEQ_BANDS = {
+    "TiSASRec": {"valid": (0.04566918909549713, 0.004693966601810954),
+                 "test": (0.04335320275276899, 0.008988101033984716)},
+    "NARM": {"valid": (0.27208328545093535, 0.005659498303035457),
+             "test": (0.25754858255386354, 0.004933453099574731)},
+    "VAECF": {"valid": (0.17106172442436218, 0.008142394129761463),
+              "test": (0.1476400688290596, 0.007428062552732322)},
+}
+SEQ_REPEAT_EPOCHS = {"TiSASRec": 2, "NARM": 2, "VAECF": 3}  # each model's epochs trained twice, bit for bit
+SEQ_UNITS = {"sequence_time": "sequences", "prefix": "examples", "userrow": "user rows"}  # a step's rows
+# TiSASRec's band cannot fail an untrained model (its best epoch is 0 in
+# most JAX seeds): its first steps at the shipped width on the card are held
+# to the same steps through the port on the CPU, with the same batches,
+# dropout masks and FFN ReLU decisions (SSL_CPU_TOL, SSL_EPS_SET).
+SEQ_CPU_STEPS = 5
+SERVE_CPU_TOL = 1e-5  # test() of a checkpoint on the card against the port's on the CPU
+VAECF_CHECKPOINT = "VAECF_default_20260821_135516_yybcvt"
+# The JAX package's VAECF(cfg).load(VAECF_CHECKPOINT, data).test() on the
+# structured split.
+EXPECTED_VAECF_METRICS = {"ndcg@10": 0.155424, "recall@10": 0.397667, "precision@10": 0.039767,
+                          "map@10": 0.084868}
 
 T0 = time.perf_counter()
 
@@ -950,11 +1024,13 @@ def check_mf_serving(phase, rec):
 
 def mf_sparse_training(seed, root_dir):
     """Phase 3. Returns fused_rowadam's launches on the path (train() alone)."""
-    rec, result, launches, res = train_mf("mf-sparse", seed, root_dir, sparse_optim=True, row_update="fused")
+    rec, result, launches, res = train_mf("mf-sparse", seed, root_dir, sparse_optim=True, row_update="fused",
+                                          max_epoch=MF_SPARSE_EPOCHS)
     steps = len(rec.engine.bookkeeper.history) * rec.engine.epoch_fn.num_batches
     check_launches("fused_rowadam", "mf-sparse", launches, steps)
-    log("mf-sparse", in_band("best valid ndcg@10", result["valid_metric"], SPARSE_BAND["valid"]) + "; "
-        + in_band("test ndcg@10", res["ndcg@10"], SPARSE_BAND["test"]))
+    log("mf-sparse", f"(cap {MF_SPARSE_EPOCHS} epochs) "
+        + in_band("best valid ndcg@10", result["valid_metric"], SPARSE_BAND_AT_CAP["valid"]) + "; "
+        + in_band("test ndcg@10", res["ndcg@10"], SPARSE_BAND_AT_CAP["test"]))
     check_mf_serving("mf-sparse", rec)
     log("mf-sparse", f"{PROFILED_WINDOW} steps: " + profile_window(rec.engine.epoch_fn, rec.engine.generator, top=8,
                                                                     kernel="rowadam_kernel"))
@@ -1750,7 +1826,7 @@ def shipped_config(path, seed, root_dir, **model):
 
 
 def ncf_config(name, seed, root_dir):
-    return shipped_config(NCF_FAMILY[name][1], seed, root_dir)
+    return shipped_config(NCF_FAMILY[name][1], seed, root_dir, max_epoch=NCF_EPOCHS)
 
 
 def serve_ncf_checkpoints(root_dir):
@@ -1831,8 +1907,8 @@ def train_ncf_family(seed, root_dir, data):
         phase = f"{name.lower()}-train"
         rec, result, res = train_pointwise(name, phase, seed, root_dir, data)
         band = NCF_BANDS[name]
-        log(phase, in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
-            + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
+        log(phase, f"(cap {NCF_EPOCHS} epochs) " + in_band("best valid ndcg@10", result["valid_metric"], band["valid"])
+            + "; " + in_band("test ndcg@10", res["ndcg@10"], band["test"]))
         check_mf_serving(phase, rec)
         log(phase, f"{PROFILED_WINDOW} more steps: " + profile_window(rec.engine.epoch_fn, rec.engine.generator,
                                                                         top=8))
@@ -1956,16 +2032,16 @@ def propagation_times(dense, sparse, d=64):
     return f"n {n}, {n_edges} edges, d {d}: " + "; ".join(parts)
 
 
-def profiled_in_child(phase, seed):
-    """Run ``chip_smoke.py --profile <phase>`` in a process of its own and
-    print its lines: after the profiles of phases 1-19 in one process, a
+def profiled_in_child(phases, seed):
+    """Run ``chip_smoke.py --profile <phase> ...`` in one process of its own
+    and print its lines: after the profiles of phases 1-19 in one process, a
     later profile has come back without CUDA events."""
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", phase, "--seed", str(seed)],
-                         capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", *phases, "--seed", str(seed)],
+                         capture_output=True, text=True, timeout=900)
     for line in out.stdout.splitlines():
         print(f"    {line}", flush=True)
     if out.returncode:
-        fail(f"{phase}: the profiling process exited {out.returncode}: {out.stderr[-3000:]}")
+        fail(f"{', '.join(phases)}: the profiling process exited {out.returncode}: {out.stderr[-3000:]}")
 
 
 def serve_graph_checkpoints(root_dir, data):
@@ -2032,25 +2108,36 @@ def serve_graph_checkpoints(root_dir, data):
 
 
 def train_dense(rec, phase, data):
-    """Train ``rec`` (a recommender on the dense pairwise or multineg
-    trainer) through rec.train(data); returns the recommender, the train
-    result, the test() row and the kernels' counts around the path."""
+    """Train ``rec`` (a recommender on a trainer with no kernel) through
+    rec.train(data); returns the recommender, the train result, the test()
+    row and the kernels' counts around the path. Logs each epoch's rate and
+    test()'s time and peak device memory."""
     zero_kernel_counts()
     result = rec.train(data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     res = rec.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     counts = check_no_kernel(phase)
     engine = rec.engine
     trainer = engine.epoch_fn
-    negs = f" (x {trainer.neg_shape[0]} negatives)" if trainer.neg_shape else ""
-    rates = [trainer.padded_size / s for s in engine.epoch_seconds]
-    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} positives{negs}, best "
-        f"epoch {result['best_epoch']}, train() {result['run_time']:.2f} s; positives/s per epoch: "
+    unit = SEQ_UNITS.get(rec.model.batch_kind, "positives")
+    negs = f" (x {trainer.neg_shape[0]} negatives)" if getattr(trainer, "neg_shape", ()) else ""
+    rates = [trainer.num_batches * trainer.batch_size / s for s in engine.epoch_seconds]
+    log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} {unit}{negs}, best "
+        f"epoch {result['best_epoch']}, train() {result['run_time']:.2f} s; {unit}/s per epoch: "
         + ", ".join(f"{r:.0f}" for r in rates))
     if len(rates) > 1:
-        log(phase, f"positives/s after the first epoch: median {np.median(rates[1:]):.1f}, "
+        log(phase, f"{unit}/s after the first epoch: median {np.median(rates[1:]):.1f}, "
             f"min {min(rates[1:]):.1f}, max {max(rates[1:]):.1f}")
     log(phase, f"best valid ndcg@10 {result['valid_metric']:.6f}; test() "
-        + ", ".join(f"{k} {res[k]:.6f}" for k in sorted(res) if k.endswith("@10")))
+        + ", ".join(f"{k} {res[k]:.6f}" for k in sorted(res) if k.endswith("@10"))
+        + f" in {test_s * 1e3:.2f} ms, peak device memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB held "
+        "before it)")
     return rec, result, res, counts
 
 
@@ -2095,12 +2182,11 @@ def graph_training(seed, root_dir, data):
 
 
 def graph_phases(seed, root_dir):
-    """Phases 20-22 and one child process profiling them. Returns the
+    """Phases 20-22 (profiled by ``--profile graph-models``). Returns the
     kernels' counts by path (all 0)."""
     data = mf_split()
     counts = serve_graph_checkpoints(root_dir, data)
     counts.update(graph_training(seed, root_dir, data))
-    profiled_in_child(PROFILE_GRAPH, seed)
     return counts
 
 
@@ -2185,10 +2271,14 @@ def multineg_training(seed, root_dir, data):
 
 
 class DrawReplay:
-    """Inside the block, SGL's subgraph draws and SimGCL's noise draws of a
+    """Inside the block, SGL's subgraph draws, SimGCL's noise draws, the
+    dropout masks, VAECF's latent noise and the FFN's ReLU decisions of a
     recording run are kept in order and handed, in that order, to a
-    replaying run (``replaying`` True): the same draws on the card and on
-    the CPU."""
+    replaying run (``replaying`` True): the same draws and the same
+    branches on the card and on the CPU (a pre-activation within rounding
+    of 0 may fall on either side: at TiSASRec's step 2 at the shipped width
+    one did, and moved a gradient by 2.3e-5, PERF.md section 6). Each
+    function takes its device, or a tensor on it, last."""
 
     def __init__(self):
         self.queue = collections.deque()
@@ -2196,17 +2286,20 @@ class DrawReplay:
         self._saved = []
 
     def _wrap(self, real):
-        def draw(generator, shape, device):
+        def draw(*args):
             if self.replaying:
-                return self.queue.popleft().to(device)
-            out = real(generator, shape, device)
+                where = args[-1]
+                return self.queue.popleft().to(where.device if isinstance(where, torch.Tensor) else where)
+            out = real(*args)
             self.queue.append(out)
             return out
 
         return draw
 
     def __enter__(self):
-        for module, name in ((sgl_model, "sgl_draws"), (simgcl_model, "perturbation_noise")):
+        for module, name in ((sgl_model, "sgl_draws"), (simgcl_model, "perturbation_noise"),
+                             (port_attention, "dropout_mask"), (vaecf_model, "latent_noise"),
+                             (port_attention, "relu_keep")):
             self._saved.append((module, name, getattr(module, name)))
             setattr(module, name, self._wrap(getattr(module, name)))
         return self
@@ -2340,13 +2433,12 @@ def memory_training(seed, root_dir, data):
 
 
 def capped_phases(seed, root_dir):
-    """Phases 23-25 and one child process profiling their trainings. Returns
-    the kernels' counts by path (all 0)."""
+    """Phases 23-25 (profiled by ``--profile capped-models``). Returns the
+    kernels' counts by path (all 0)."""
     data = mf_split()
     counts = {"ultragcn-serve": serve_ultragcn_checkpoint(root_dir, data)}
     counts.update(multineg_training(seed, root_dir, data))
     counts.update(memory_training(seed, root_dir, data))
-    profiled_in_child(PROFILE_CAPPED, seed)
     return counts
 
 
@@ -2358,12 +2450,16 @@ def ssl_config(name, seed, root_dir, **model):
     return shipped_config(SSL_FAMILY[name][1], seed, root_dir, **{"max_epoch": SSL_FAMILY[name][2], **model})
 
 
-def ssl_engine(name, seed, root_dir, data, device=None, **model):
-    """(recommender, engine) at the capped shipped config, built as train()
-    builds them: the weights its training starts from."""
-    rec = SSL_FAMILY[name][0](ssl_config(name, seed, root_dir, **model), device=device)
+def built_engine(rec, data):
+    """(rec, engine) with the engine built as rec.train(data) builds it: the
+    weights its training starts from."""
     rec.data = data
     return rec, TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
+
+
+def ssl_engine(name, seed, root_dir, data, device=None, **model):
+    """``built_engine`` at the capped shipped config."""
+    return built_engine(SSL_FAMILY[name][0](ssl_config(name, seed, root_dir, **model), device=device), data)
 
 
 def buir_target_after_one_step(phase, seed, root_dir, data, device=None, **model):
@@ -2438,8 +2534,8 @@ def ssl_training(name, seed, root_dir, data):
 
 
 def ssl_phases(seed, root_dir):
-    """Phases 26-27 and one child process profiling their trainings. Returns
-    the kernels' counts by path (all 0)."""
+    """Phases 26-27 (profiled by ``--profile ssl-models``). Returns the
+    kernels' counts by path (all 0)."""
     data = mf_split()
     cut_off = float(load_config(os.path.join(REPO, SSL_FAMILY["LCFN"][1])).model.get("cut_off", 0.2))
     t0 = time.perf_counter()
@@ -2451,20 +2547,138 @@ def ssl_phases(seed, root_dir):
         t0 = time.perf_counter()
         counts[f"{name.lower()}-train"] = ssl_training(name, seed, root_dir, data)
         log(f"{name.lower()}-train", f"phase took {time.perf_counter() - t0:.2f} s")
-    profiled_in_child(PROFILE_SSL, seed)
     return counts
 
 
-PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles, in one child process
-PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles, in one child process
-PROFILE_SSL = "ssl-models"  # phases 26-27's profiles, in one child process
-PROFILED_CAPPED_STEPS = 20  # training steps profiled for each model of phases 21-22 and 24-27
+# -- the sequential and VAE models (phases 28-30) -------------------------------
+
+
+def seq_config(name, seed, root_dir, **model):
+    """The shipped config capped at its band's epochs (SEQ_FAMILY)."""
+    return shipped_config(SEQ_FAMILY[name][1], seed, root_dir, **{"max_epoch": SEQ_FAMILY[name][2], **model})
+
+
+def seq_split():
+    """The structured split as a SequentialData (which VAECF also takes)."""
+    return SequentialData(load_split_data(SPLIT, n_test=1))
+
+
+def seq_engine(name, seed, root_dir, data, device=None, **model):
+    """``built_engine`` at the capped shipped config."""
+    return built_engine(SEQ_FAMILY[name][0](seq_config(name, seed, root_dir, **model), device=device), data)
+
+
+def serves_as_the_cpu(phase, rec, data, ckpt_dir, res):
+    """The checkpoint at ``ckpt_dir`` served by the port on the CPU gives
+    ``rec``'s test() row ``res`` to SERVE_CPU_TOL, its predict() to
+    PREDICT_TOL relative to max(1, |score|) (NARM's logits reach ~16, where
+    one float32 step is 1.9e-6) and its top-10 lists; ``rec``'s lists are
+    well-formed."""
+    cpu = type(rec)(rec.config, device="cpu").load(ckpt_dir, data)
+    want = cpu.test()
+    gap = max(abs(res[key] - want[key]) for key in want)
+    pairs = {c: data.test[0][c][:300] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)}
+    scores = rec.predict(pairs)
+    if scores.shape != (300,) or not np.isfinite(scores).all():
+        fail(f"{phase}: predict() gave {scores.shape} with non-finite values")
+    want_scores = cpu.predict(pairs)
+    err = float((np.abs(scores - want_scores) / np.maximum(1.0, np.abs(want_scores))).max())
+    k = 10
+    recs = rec.recommend(k=k)
+    torch.cuda.synchronize()
+    check_recommendations(recs, data, k, data.n_users)
+    if gap > SERVE_CPU_TOL or err > PREDICT_TOL or same_top_k(recs, cpu.recommend(k=k), k):
+        fail(f"{phase}: the card's serving differs from the CPU's: test() by {gap} (limit {SERVE_CPU_TOL}), "
+             f"predict() by {err} (limit {PREDICT_TOL}), or the top-{k} lists")
+    return (f"test() within {gap:.3g} of the CPU's, predict(300 pairs) within {err:.3g} (relative to max(1, "
+            f"|score|), scores up to {np.abs(want_scores).max():.3g}); recommend(k={k}) "
+            f"{data.n_users} users, no train item, the CPU's lists for every user")
+
+
+def serve_vaecf_checkpoint(root_dir, data):
+    """Phase 30's serving: the JAX-trained seed-0 VAECF checkpoint's load,
+    test(), predict() and recommend() against the JAX package's metrics
+    and the port on the CPU. Returns the kernels' counts on the path."""
+    phase = "vaecf-serve"
+    path = os.path.join(REPO, "parity_runs/checkpoints", VAECF_CHECKPOINT)
+    zero_kernel_counts()
+    rec = VAECF(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
+    res = rec.test()
+    for key, want in EXPECTED_VAECF_METRICS.items():
+        if abs(res[key] - want) > METRIC_TOL:
+            fail(f"VAECF checkpoint test() {key} = {res[key]:.6f}, expected {want} +- {METRIC_TOL}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    report = serves_as_the_cpu(phase, rec, data, path, res)
+    counts = check_no_kernel(phase)
+    n_eval = len(data.eval_candidates(data.test[0]).users)
+    log(phase, "test() " + ", ".join(f"{key} {res[key]:.6f}" for key in EXPECTED_VAECF_METRICS)
+        + f" (expected to {METRIC_TOL}); {report}; no kernel launched; test() {n_eval / test_s:.1f} users/s "
+        f"({test_s * 1e3:.2f} ms)")
+    return counts
+
+
+def seq_training(name, seed, root_dir, data):
+    """One model of phases 28-30: (TiSASRec) its first steps against the
+    CPU's, its capped training against the JAX band (held where the band's
+    lower edge lies above UNTRAINED_NDCG, else reported: there the steps
+    hold the model), its serving against the CPU's, and its first epochs
+    twice bit for bit. Returns the kernels' counts on its path."""
+    phase = f"{name.lower()}-train"
+    cls, _, cap = SEQ_FAMILY[name]
+    band = SEQ_BANDS[name]
+    weak = [key for key in band if band[key][0] - 3 * band[key][1] < UNTRAINED_NDCG]
+    if weak:
+        start, engine = seq_engine(name, seed, root_dir, data)
+        diff, _, eps_set = steps_match_cpu(phase, start, engine, data, SEQ_CPU_STEPS, SSL_CPU_TOL, SSL_EPS_SET)
+        log(phase, f"{SEQ_CPU_STEPS} Adam steps at emb {engine.model.emb_dim} from the initial weights equal the "
+            f"CPU's on the same batches, dropout masks and ReLU decisions: "
+            f"{describe_steps(diff, SSL_CPU_TOL)}{eps_set}; the "
+            f"band's lower edge ({', '.join(weak)}) lies below {UNTRAINED_NDCG}, so these steps are the check that "
+            "can fail an untrained model")
+    rec, result, res, _ = train_dense(cls(seq_config(name, seed, root_dir)), phase, data)
+    held = band_position if weak else in_band
+    log(phase, (f"(cap {cap} epochs) " if cap < 200 else "(to early stop) ")
+        + held("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+        + held("test ndcg@10", res["ndcg@10"], band["test"])
+        + ("; reported, not held: the steps above hold this model" if weak else ""))
+    log(phase, serves_as_the_cpu(phase, rec, data, result["model_save_dir"], res))
+    counts = check_no_kernel(phase)  # since train_dense zeroed them: train(), test() and the serving
+    repeats_bit_for_bit(name, phase, seed, SEQ_REPEAT_EPOCHS[name], lambda p, epochs: train_dense(
+        cls(seq_config(name, seed, root_dir, max_epoch=epochs)), p, data), flatten_params)
+    return counts
+
+
+def seq_phases(seed, root_dir):
+    """Phases 28-30 (profiled by ``--profile seq-models``). Returns the
+    kernels' counts by path (all 0)."""
+    data = seq_split()
+    counts = {}
+    for name in SEQ_FAMILY:
+        t0 = time.perf_counter()
+        if name == "VAECF":
+            counts["vaecf-serve"] = serve_vaecf_checkpoint(root_dir, data)
+        counts[f"{name.lower()}-train"] = seq_training(name, seed, root_dir, data)
+        log(f"{name.lower()}-train", f"phase took {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
+PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
+PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
+PROFILE_SEQ = "seq-models"  # phases 28-30's profiles
+# All four run in one child process after phase 30 (one process start, not four).
+PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ)
+PROFILED_CAPPED_STEPS = 20  # training steps profiled for each model of phases 21-22 and 24-30
 
 
 def profile_phase(phase, seed):
-    """``--profile``: the profiled calls of phases 20-22, 23-25 or 26-27
-    together, in this process alone. A profile without CUDA events prints a
-    WARNING line."""
+    """``--profile``: the profiled calls of phases 20-22, 23-25, 26-27 or
+    28-30 together, in this process alone. A profile without CUDA events
+    prints a WARNING line."""
 
     def report(what, text):
         print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {what}: {text}", flush=True)
@@ -2513,9 +2727,11 @@ def profile_phase(phase, seed):
                 if name == "CMN":
                     report("CMN test()", device_breakdown(rec.test))
             return
-        if phase == PROFILE_SSL:
-            for name in SSL_FAMILY:
-                _, engine = ssl_engine(name, seed, root_dir, data)
+        if phase in (PROFILE_SSL, PROFILE_SEQ):
+            family, engine_of = (SSL_FAMILY, ssl_engine) if phase == PROFILE_SSL else (SEQ_FAMILY, seq_engine)
+            data = data if phase == PROFILE_SSL else seq_split()
+            for name in family:
+                _, engine = engine_of(name, seed, root_dir, data)
                 trainer = engine.epoch_fn
                 trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
                 report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, engine.generator,
@@ -2530,14 +2746,16 @@ def main():
                         help="run only the ring kernel and the sharded MF phases (11-16)")
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
-    parser.add_argument("--profile", choices=[PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL],
-                        help="profile phases 20-22, 23-25 or 26-27 in this process alone (the phases run it)")
+    parser.add_argument("--profile", nargs="+", choices=PROFILES,
+                        help="profile phases 20-22, 23-25, 26-27 and/or 28-30 in this process alone (the main run "
+                             "runs all four in one child)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     if args.profile:
         fp32_matmuls()
-        profile_phase(args.profile, args.seed)
+        for phase in args.profile:
+            profile_phase(phase, args.seed)
         return 0
 
     smi = nvidia_smi_line()
@@ -2642,7 +2860,9 @@ def main():
         graph_counts = graph_phases(args.seed, root_dir)
         graph_counts.update(capped_phases(args.seed, root_dir))
         graph_counts.update(ssl_phases(args.seed, root_dir))
-    for path, counts in graph_counts.items():  # phases 17-27: every count 0 (check_no_kernel)
+        graph_counts.update(seq_phases(args.seed, root_dir))
+        profiled_in_child(PROFILES, args.seed)
+    for path, counts in graph_counts.items():  # phases 17-30: every count 0 (check_no_kernel)
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

@@ -8,11 +8,14 @@ Trains ``beta_recsys_tpu``'s MatrixFactorization from
 "xla" (the arithmetic of "fused", ``tests/test_rowadam_kernel.py``) on
 ``parity_runs/datasets/synthetic_structured`` (leave-one-out, 100 negatives,
 one evaluation copy) once for each of seeds 0-9, with early stop, and prints
-each seed's best valid ndcg@10, best epoch, epochs run and test ndcg@10, then
-the mean and the sample standard deviation (ddof 1) of the best valid and the
-test ndcg@10. ``chip_smoke.py`` holds the port's lazy-Adam trainer to mean
-+- 3 std. Results go under a temporary directory; the ten seeds take ~5
-minutes on a CPU.
+each seed's best valid ndcg@10, best epoch, epochs run, test ndcg@10 and
+per-epoch valid and test ndcg@10, then the mean and the sample standard
+deviation (ddof 1) of the best valid and the test ndcg@10 over the whole
+run and read at each cap of ``CAPS`` (the best valid within the cap's
+epochs and the test at that epoch, which for MF is test()'s).
+``chip_smoke.py`` holds the port's lazy-Adam trainer to mean +- 3 std (phase
+3 at a cap, the 4-card run to early stop). Results go under a temporary
+directory; the ten seeds take ~5 minutes on a CPU.
 """
 
 import json
@@ -27,6 +30,7 @@ SPLIT = os.path.join(
     REPO, "parity_runs/datasets/synthetic_structured/processed/leave_one_out/full_n_neg_100"
 )
 SEEDS = range(10)
+CAPS = (20, 30, 40)
 
 
 def summarize(runs):
@@ -37,6 +41,13 @@ def summarize(runs):
         summary[f"{key}_mean"] = float(values.mean())
         summary[f"{key}_std"] = float(values.std(ddof=1))
     return summary
+
+
+def at_cap(r, cap):
+    """The run as it would have ended after ``cap`` epochs."""
+    valid = r["valid_curve"][:cap]
+    best = int(np.argmax(valid))  # the first best, as the bookkeeper keeps it
+    return {"seed": r["seed"], "valid_best": valid[best], "test_ndcg@10": r["test_curve"][best]}
 
 
 def main():
@@ -60,15 +71,19 @@ def main():
             )
             rec = MatrixFactorization(cfg)
             result = rec.train(data)
+            history = rec.engine.bookkeeper.history
             run = {
                 "seed": seed, "valid_best": result["valid_metric"],
                 "best_epoch": result["best_epoch"],
-                "epochs_run": len(rec.engine.bookkeeper.history),
+                "epochs_run": len(history),
                 "test_ndcg@10": rec.test()["ndcg@10"], "train_s": result["run_time"],
+                "valid_curve": [h["valid"]["ndcg@10"] for h in history],
+                "test_curve": [h["test"].get("ndcg@10") for h in history],
             }
             runs.append(run)
             print(json.dumps(run), flush=True)
-    print(json.dumps(summarize(runs)))
+    print(json.dumps({"run": summarize(runs),
+                      **{f"cap_{cap}": summarize([at_cap(r, cap) for r in runs]) for cap in CAPS}}))
 
 
 if __name__ == "__main__":

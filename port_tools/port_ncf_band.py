@@ -6,8 +6,9 @@
 Trains each model once for each of seeds 0-9 on the CPU, on one thread (a
 sum split over threads may take another order on another run), as
 ``chip_smoke.py``'s phase 18 does on the card (``chip_smoke.ncf_config``:
-the shipped config on the structured split, one evaluation copy, early
-stop) through ``XRecommender(cfg, device="cpu").train(data)``, and prints
+the shipped config on the structured split, one evaluation copy, capped
+at ``chip_smoke.NCF_EPOCHS``) through ``XRecommender(cfg,
+device="cpu").train(data)``, and prints
 what ``port_tools/jax_ncf_band.py`` prints for the JAX package: each seed's
 best valid ndcg@10, best epoch, epochs run and test ndcg@10, then each
 model's mean and sample standard deviation. With model names, only those

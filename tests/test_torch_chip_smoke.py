@@ -165,6 +165,7 @@ def test_ncf_config_is_the_shipped_config(name, emb_dim):
     assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
     m = cfg.model
     assert (m.model, m.emb_dim, m.num_negative, m.batch_size, m.lr, m.max_n_update) == (name, emb_dim, 4, 400, 1e-3, 20)
+    assert m.max_epoch == chip_smoke.NCF_EPOCHS == 20
     assert set(chip_smoke.NCF_BANDS[name]) == {"valid", "test"}
     assert os.path.isdir(os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.NCF_FAMILY[name][2]))
 
@@ -359,3 +360,134 @@ def test_steps_match_cpu_excuses_only_eps_set_elements(where, passes, tmp_path, 
     else:
         with pytest.raises(SystemExit):
             chip_smoke.steps_match_cpu("simgcl-train", start, engine, data, 2, 1e-5, 1e-7)
+
+
+@pytest.mark.parametrize("name,width,batch,cap", [("TiSASRec", ("emb_dim", 64), 128, 10),
+                                                  ("NARM", ("hidden_size", 100), 512, 5),
+                                                  ("VAECF", ("z_dim", 10), 128, 200)])
+def test_seq_config_is_the_shipped_config_at_its_cap(name, width, batch, cap):
+    cfg = chip_smoke.seq_config(name, 3, "/nowhere")
+    m = cfg.model
+    assert (cfg.system.seed, cfg.dataset.dataset, cfg.dataset.n_test) == (3, "synthetic_structured", 1)
+    assert (m.model, m.batch_size, m.optimizer, m.lr, m.max_epoch, m.max_n_update) == (name, batch, "adam", 1e-3,
+                                                                                        cap, 20)
+    assert m.get(width[0]) == width[1] and chip_smoke.SEQ_FAMILY[name][2] == cap
+    assert chip_smoke.seq_config(name, 3, "/x", max_epoch=2).model.max_epoch == 2
+    band = chip_smoke.SEQ_BANDS[name]
+    assert set(band) == {"valid", "test"} and all(0 < mean < 1 and 0 < std < 0.1 for mean, std in band.values())
+    # Only TiSASRec's band reaches below random ranking: its steps hold it.
+    weak = any(mean - 3 * std < chip_smoke.UNTRAINED_NDCG for mean, std in band.values())
+    assert weak == (name == "TiSASRec")
+
+
+def test_the_served_vaecf_checkpoint_is_in_the_repo_and_the_chip_copy():
+    path = os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.VAECF_CHECKPOINT)
+    assert os.path.exists(os.path.join(path, "checkpoint.msgpack"))
+    with open(os.path.join(REPO, ".chiprunignore")) as f:
+        ignored = [line.strip() for line in f if line.strip() and not line.startswith("#")]
+    assert not any(fnmatch.fnmatch("parity_runs/checkpoints/" + chip_smoke.VAECF_CHECKPOINT, pattern)
+                   for pattern in ignored)
+    others = [d for d in os.listdir(os.path.join(REPO, "parity_runs/checkpoints"))
+              if d.startswith("VAECF_") and d != chip_smoke.VAECF_CHECKPOINT]
+    assert others and all(any(fnmatch.fnmatch("parity_runs/checkpoints/" + d, p) for p in ignored) for d in others)
+
+
+def test_steps_match_cpu_hands_the_dropout_masks_to_the_cpu(tmp_path, monkeypatch):
+    """TiSASRec at a narrow width, both runs on the CPU: with the masks
+    replayed they agree within the limit, without the replay each run draws
+    its own masks (the steps differ), and the draw functions come back
+    after the block."""
+    data = chip_smoke.seq_split()
+    start, engine = chip_smoke.seq_engine("TiSASRec", 0, str(tmp_path), data, "cpu", emb_dim=4)
+    assert engine.model.dropout_rate == 0.2
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    real = (chip_smoke.port_attention.dropout_mask, chip_smoke.vaecf_model.latent_noise)
+    diff, _, _ = chip_smoke.steps_match_cpu("tisasrec-train", start, engine, data, 2, chip_smoke.SSL_CPU_TOL,
+                                            chip_smoke.SSL_EPS_SET)
+    assert (chip_smoke.port_attention.dropout_mask, chip_smoke.vaecf_model.latent_noise) == real
+    assert set(diff) == {"loss", "parameters", "exp_avg", "exp_avg_sq"} and max(diff.values()) < 1e-5
+    assert any(not torch.equal(before[k], v) for k, v in engine.model.state_dict().items())  # the steps ran
+
+    class NoReplay(chip_smoke.DrawReplay):
+        def __enter__(self):
+            return self
+
+    monkeypatch.setattr(chip_smoke, "DrawReplay", NoReplay)
+    monkeypatch.setattr(chip_smoke, "fail", lambda msg: (_ for _ in ()).throw(AssertionError(msg)))
+    with pytest.raises(AssertionError, match="steps differ from the CPU's"):
+        chip_smoke.steps_match_cpu("tisasrec-train", start, engine, data, 1, chip_smoke.SSL_CPU_TOL)
+
+
+def test_draw_replay_hands_each_draw_function_its_recorded_draws():
+    """Recorded draws (dropout masks, VAECF's noise) come back in order on
+    the device each replaying call names."""
+    with chip_smoke.DrawReplay() as replay:
+        masks = [chip_smoke.port_attention.dropout_mask(torch.Generator().manual_seed(i), (3, 4), 0.5, "cpu")
+                 for i in range(2)]
+        noise = chip_smoke.vaecf_model.latent_noise(torch.Generator().manual_seed(5), (2, 3), "cpu")
+        replay.replaying = True
+        assert torch.equal(chip_smoke.port_attention.dropout_mask(None, (3, 4), 0.5, "cpu"), masks[0])
+        assert torch.equal(chip_smoke.port_attention.dropout_mask(None, (3, 4), 0.5, "cpu"), masks[1])
+        assert torch.equal(chip_smoke.vaecf_model.latent_noise(None, (2, 3), "cpu"), noise)
+        assert not replay.queue
+
+
+@pytest.mark.parametrize("name", ["TiSASRec", "NARM", "VAECF"])
+def test_profile_window_takes_the_sequence_and_row_trainers(name, tmp_path, monkeypatch):
+    """The profiled callable forms the epoch's batches (the generator
+    advances inside it) and trains ``steps`` steps of each new trainer."""
+    data = chip_smoke.seq_split()
+    width = {"TiSASRec": {"emb_dim": 4}, "NARM": {"hidden_size": 4, "emb_dim": 4, "embedding_dim": 4},
+             "VAECF": {}}[name]
+    _, engine = chip_smoke.seq_engine(name, 0, str(tmp_path), data, "cpu", **width)
+    trainer, generator = engine.epoch_fn, engine.generator
+    seen = {}
+
+    def breakdown(fn, steps=None, **kwargs):
+        state = generator.get_state()
+        seen["loss"], seen["steps"] = fn(), steps
+        seen["drew"] = not torch.equal(state, generator.get_state())
+        return "profiled"
+
+    monkeypatch.setattr(chip_smoke, "device_breakdown", breakdown)
+    calls = []
+    run_batches = trainer.run_batches
+    monkeypatch.setattr(trainer, "run_batches", lambda *a, **k: calls.append(a[0].shape) or run_batches(*a, **k))
+    assert chip_smoke.profile_window(trainer, generator, 2) == "profiled"
+    assert seen["drew"] and seen["steps"] == 2 and np.isfinite(seen["loss"]) and calls == [(2, trainer.batch_size)]
+
+
+def test_serves_as_the_cpu_compares_metrics_scores_and_lists(tmp_path, monkeypatch):
+    """The seed-0 VAECF checkpoint served twice on the CPU agrees with
+    itself; a model whose parameters moved fails."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    data = chip_smoke.seq_split()
+    path = os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.VAECF_CHECKPOINT)
+    cfg = chip_smoke.load_config(path).replace(system={"root_dir": str(tmp_path)})
+    rec = chip_smoke.VAECF(cfg, device="cpu").load(path, data)
+    res = rec.test()
+    for key, want in chip_smoke.EXPECTED_VAECF_METRICS.items():
+        assert abs(res[key] - want) < 1e-5, key
+    report = chip_smoke.serves_as_the_cpu("vaecf-serve", rec, data, path, res)
+    assert "test() within 0 of the CPU's, predict(300 pairs) within 0 (relative" in report
+    with torch.no_grad():
+        rec.model.dec[-1]["b"] += torch.linspace(0, 1, data.n_items)
+    with pytest.raises(SystemExit):
+        chip_smoke.serves_as_the_cpu("vaecf-serve", rec, data, path, rec.test())
+
+
+def test_draw_replay_hands_the_ffn_relu_decisions_over():
+    """The FFN's ReLU decisions of a recording run come back to a replaying
+    run: a pre-activation on the other side of 0 takes the recorded branch."""
+    from beta_recsys_tpu_torch.ops.attention import pointwise_ffn
+
+    g = torch.Generator().manual_seed(0)
+    p = {"w1": torch.randn(4, 4, generator=g), "b1": torch.zeros(4), "w2": torch.eye(4), "b2": torch.zeros(4)}
+    x = torch.randn(3, 4, generator=g)
+    with chip_smoke.DrawReplay() as replay:
+        out = pointwise_ffn(x, p)
+        assert torch.equal(out, x + torch.relu(x @ p["w1"]))
+        replay.replaying = True
+        flipped = pointwise_ffn(x, {**p, "w1": -p["w1"]})  # every sign flips; the recorded branches stay
+        assert torch.equal(flipped, x - torch.where(x @ p["w1"] > 0, x @ p["w1"], 0.0))
+        assert not replay.queue

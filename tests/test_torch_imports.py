@@ -35,6 +35,15 @@ for name in chip_smoke.CAPPED_FAMILY:
 for name in chip_smoke.SSL_FAMILY:
     chip_smoke.ssl_config(name, 0, "unused")
 chip_smoke.DrawReplay()
+for name in chip_smoke.SEQ_FAMILY:
+    chip_smoke.seq_config(name, 0, "unused")
+from beta_recsys_tpu_torch.core.train_engine import PrefixEpochTrainer, SequenceTimeEpochTrainer, UserRowEpochTrainer
+from beta_recsys_tpu_torch.models.narm import NARM, gru_scan
+from beta_recsys_tpu_torch.models.tisasrec import TiSASRec, bucket_flat_index
+from beta_recsys_tpu_torch.models.vaecf import VAECF, latent_noise
+from beta_recsys_tpu_torch.recommenders import NARM as NARMRecommender, TiSASRec as TiSASRecRecommender, VAECF as VAECFRecommender
+bucket_flat_index(chip_smoke.torch.zeros(2, 3, 3, dtype=chip_smoke.torch.long), 2, 5)
+latent_noise(None, (2, 3), "cpu")
 from beta_recsys_tpu_torch.ops.graph import sgl_augment, sgl_draws, undirected_pairs
 edge_pair, n_pairs = undirected_pairs([0, 1], [1, 0])
 sgl_augment(sgl_draws(None, n_pairs, "cpu"), chip_smoke.torch.tensor([0, 1]), chip_smoke.torch.tensor([1, 0]),

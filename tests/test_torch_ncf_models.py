@@ -222,7 +222,7 @@ def test_registry_holds_the_jax_names():
         assert MODELS[key] is cls
         assert isinstance(build_model(_config(key), 5, 6, device="cpu"), cls)
     with pytest.raises(ValueError, match="not ported"):
-        build_model({"model": "VAECF"}, 5, 6, device="cpu")  # a model still to port
+        build_model({"model": "Triple2vec"}, 5, 6, device="cpu")  # a model still to port
 
 
 def _pretrained(seed):
