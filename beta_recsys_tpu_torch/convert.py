@@ -22,6 +22,9 @@ as a list or as a dict keyed "0", "1", ..., like SASRec's ``blocks``),
 which they all are, serves the later models as it is (PairwiseGMF, CMN with
 its ``hop_maps`` list, UltraGCN, MixGCF); it also takes a tree whose leaves
 are tensors (a ``state_dict`` nested by ``nest_dotted``), on any device.
+``triple2vec_params_from_jax``, ``vbcar_params_from_jax``,
+``tvbr_params_from_jax`` and ``knn_params_from_jax`` name it for the
+grocery and neighbourhood models.
 """
 
 import numpy as np
@@ -78,8 +81,27 @@ def ngcf_params_from_jax(params):
     return flatten_params(params)
 
 
+def triple2vec_params_from_jax(params):
+    """{name: float32 tensor} for ``Triple2vec.load_state_dict`` (both item
+    tables, the untied one too)."""
+    return flatten_params(params)
 
 
+def vbcar_params_from_jax(params):
+    """{dotted name: float32 tensor} for ``VBCAR.load_state_dict``: the
+    encoders ``fc_<side>_<layer>`` as ``{w, b}``, ``w`` (in, out)."""
+    return flatten_params(params)
+
+
+def tvbr_params_from_jax(params):
+    """{dotted name: float32 tensor} for ``TVBR.load_state_dict``: VBCAR's
+    and the four ``time2<stat>_<side>`` heads, ``{w, b}`` each."""
+    return flatten_params(params)
+
+
+def knn_params_from_jax(params):
+    """{"_": 0-d float32 tensor} for ``UserKNN``/``ItemKNN.load_state_dict``."""
+    return flatten_params(params)
 
 
 def nest_dotted(flat):

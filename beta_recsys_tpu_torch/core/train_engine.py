@@ -2,15 +2,17 @@
 
 Counterpart of ``beta_recsys_tpu/core/train_engine.py`` on one device for the
 pairwise (BPR), multineg (``num_neg`` negatives a positive), pointwise (BCE),
-sequence (SASRec), sequence_time (TiSASRec), prefix (NARM) and userrow
-(VAECF) batch kinds: ``make_optimizer`` (optax's sgd, adam and rmsprop),
+sequence (SASRec), sequence_time (TiSASRec), prefix (NARM), userrow (VAECF),
+triple (Triple2vec, VBCAR, TVBR) and none (UserKNN, ItemKNN: nothing to
+train) batch kinds: ``make_optimizer`` (optax's sgd, adam and rmsprop),
 ``make_negative_sampler``, ``_padded_order``, the dense pairwise, multineg
 and pointwise trainers (``make_epoch_fn``), the sequence trainers
 (``SequenceEpochTrainer`` and ``SequenceTimeEpochTrainer``, the
 counterparts of ``make_sequence_epoch_fn`` and
 ``make_sequence_time_epoch_fn``), the permutation trainers
-(``PrefixEpochTrainer`` and ``UserRowEpochTrainer``, of
-``make_prefix_epoch_fn`` and ``make_userrow_epoch_fn``) and ``TrainEngine``
+(``PrefixEpochTrainer``, ``UserRowEpochTrainer`` and
+``TripleEpochTrainer``, of ``make_prefix_epoch_fn``,
+``make_userrow_epoch_fn`` and ``make_triple_epoch_fn``) and ``TrainEngine``
 (``build``, ``train``, ``save_checkpoint``). Models
 with a row protocol and ``"sparse_optim": true`` train through the
 lazy-Adam trainer of ``core/sparse_optim.py``; with ``system.mesh`` through
@@ -21,8 +23,9 @@ As in the JAX package, an epoch's batches are formed once before its step
 loop (the row draw or permutation, and the negatives), drawn on the device
 from one ``torch.Generator`` seeded from ``system.seed``. The step loop
 consumes them through ``run_batches``, which also takes batches formed
-elsewhere; a sequence step draws its dropout from the same generator. Losses
-stay on the device; the host reads the mean once per epoch.
+elsewhere; a step draws its dropout or latent noise from the same
+generator. Losses stay on the device; the host reads the mean once per
+epoch.
 """
 
 import os
@@ -37,12 +40,14 @@ import torch
 from ..convert import nest_dotted, params_to_jax
 from ..device import resolve_device
 from ..ops.sampling import (
+    alias_negatives,
     make_membership_test,
     sample_negatives_rejection,
     sample_negatives_rejection_bitmask,
     uniform_negatives,
 )
-from ..utils.constants import MAX_N_UPDATE
+from ..utils.alias_table import AliasTable
+from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_USER_COL, MAX_N_UPDATE
 from .checkpoint import load_raw_checkpoint, save_checkpoint, save_metadata
 from .eval_engine import EvalBookkeeper, RankingEvaluator
 
@@ -384,12 +389,13 @@ class PermutationEpochTrainer:
     """Each epoch draws a permutation of the ``n`` examples, wraps it to
     ceil(n / B) batches of ``B`` (``_padded_order``) and takes one optimizer
     step a batch; every parameter updates through ``optimizer`` from
-    ``model.loss(self.batch(order), generator)``, whose draws (dropout,
-    latent noise) come from the epoch's generator.
+    ``model.loss(self.batch(order, *draws), generator)``, whose draws
+    (dropout, latent noise) come from the epoch's generator.
 
-    ``run(generator)`` forms the epoch's order and trains on it;
-    ``run_batches(order, generator=None)`` trains on a given (num_batches,
-    B) order. Both return the mean batch loss as a 0-d device tensor."""
+    ``run(generator)`` forms the epoch's order (and a subclass's per-batch
+    draws) and trains on it; ``run_batches(order, *draws, generator=None)``
+    trains on a given (num_batches, B) order and (num_batches, B, ...)
+    draws. Both return the mean batch loss as a 0-d device tensor."""
 
     def __init__(self, model, optimizer, n, batch_size, what):
         self.model = model
@@ -411,18 +417,19 @@ class PermutationEpochTrainer:
         """Form this epoch's order and train on it; the mean batch loss."""
         return self.run_batches(*self.form(generator), generator=generator)
 
-    def run_batches(self, order, generator=None):
+    def run_batches(self, order, *draws, generator=None):
         order = torch.as_tensor(order, dtype=torch.long, device=self.device)
+        draws = [torch.as_tensor(d, dtype=torch.long, device=self.device) for d in draws]
         total = torch.zeros((), device=self.device)
         for b in range(order.shape[0]):
             self.optimizer.zero_grad(set_to_none=True)
-            loss = self.model.loss(self.batch(order[b]), generator)
+            loss = self.model.loss(self.batch(order[b], *(d[b] for d in draws)), generator)
             loss.backward()
             self.optimizer.step()
             total += loss.detach()
         return total / order.shape[0]
 
-    def batch(self, order):
+    def batch(self, order, *draws):
         raise NotImplementedError
 
 
@@ -451,6 +458,53 @@ class UserRowEpochTrainer(PermutationEpochTrainer):
 
     def batch(self, order):
         return {"rows": self.rows[order], "users": order}
+
+
+class TripleEpochTrainer(PermutationEpochTrainer):
+    """(user, item1, item2[, t]) basket triples (``GroceryData
+    .sample_triples``, drawn once and kept on the device), a batch {"users",
+    "item1", "item2"[, "t"], "neg_users", "neg_item1", "neg_item2"}: the
+    counterpart of ``make_triple_epoch_fn`` (Triple2vec, VBCAR, TVBR). Each
+    epoch draws (num_batches, B, n_neg) negatives after its permutation:
+    users, then the first and the second items, each uniform or, given
+    ``user_alias`` or ``item_alias`` ((prob, alias) tables on the device,
+    ``alias_tables``), by Walker's alias method."""
+
+    def __init__(self, model, optimizer, triples, batch_size, n_users, n_items, n_neg, user_alias=None,
+                 item_alias=None):
+        device = next(model.parameters()).device
+        self.triples = {key: torch.as_tensor(values, dtype=torch.long, device=device)
+                        for key, values in triples.items()}
+        super().__init__(model, optimizer, self.triples["users"].shape[0], batch_size, "basket triples")
+        self.n_users, self.n_items, self.n_neg = int(n_users), int(n_items), int(n_neg)
+        self.user_alias, self.item_alias = user_alias, item_alias
+
+    def _negatives(self, generator, alias, n):
+        shape = (self.num_batches, self.batch_size, self.n_neg)
+        if alias is None:
+            return uniform_negatives(generator, shape, n, self.device)
+        return alias_negatives(generator, shape, *alias)
+
+    def form(self, generator):
+        """(order, neg_users, neg_item1, neg_item2): (num_batches, B) triple
+        ids and (num_batches, B, n_neg) negatives, on the device."""
+        (order,) = super().form(generator)
+        return (order, self._negatives(generator, self.user_alias, self.n_users),
+                self._negatives(generator, self.item_alias, self.n_items),
+                self._negatives(generator, self.item_alias, self.n_items))
+
+    def batch(self, order, neg_users, neg_item1, neg_item2):
+        return {**{key: values[order] for key, values in self.triples.items()},
+                "neg_users": neg_users, "neg_item1": neg_item1, "neg_item2": neg_item2}
+
+
+def alias_tables(ids, size, device):
+    """(prob float32, alias int64) on ``device``: the ``AliasTable`` of the
+    ids' train frequencies over 0..size-1, as the JAX engine builds it for
+    the triple trainer's popularity negatives."""
+    table = AliasTable(list(np.bincount(np.asarray(ids), minlength=size).astype(np.float64)))
+    return (torch.as_tensor(table.prob_arr, dtype=torch.float32, device=device),
+            torch.as_tensor(table.alias_arr, dtype=torch.long, device=device))
 
 
 class TrainEngine:
@@ -571,6 +625,24 @@ class TrainEngine:
                 rows = (np.asarray(data.user_item_csr().todense()) > 0).astype(np.float32)
             self.optimizer = make_optimizer(model_cfg, model.parameters())
             self.epoch_fn = UserRowEpochTrainer(model, self.optimizer, rows, int(model_cfg.get("batch_size", 256)))
+        elif kind == "triple":
+            # The JAX engine draws its triples unseeded; here the run's seed
+            # draws them, so a seed repeats bit for bit. Items' negatives
+            # follow their train frequencies, users' only with
+            # user_neg_weighted (weighting both collapses training).
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            triples = data.sample_triples(int(model_cfg.get("n_sample", 100_000)),
+                                          time_step=int(model_cfg.get("time_step", 0)), seed=self.seed)
+            self.epoch_fn = TripleEpochTrainer(
+                model, self.optimizer, triples, batch_size, data.n_users, data.n_items,
+                int(model_cfg.get("n_neg", 5)),
+                user_alias=(alias_tables(data.train[DEFAULT_USER_COL], data.n_users, self.device)
+                            if model_cfg.get("user_neg_weighted", False) else None),
+                item_alias=alias_tables(data.train[DEFAULT_ITEM_COL], data.n_items, self.device),
+            )
+        elif kind == "none":  # the neighbourhood models: nothing to train
+            self.optimizer = make_optimizer(model_cfg, model.parameters())
+            self.epoch_fn = None
         else:  # a parameter without requires_grad (BUIR's target) moves by post_update alone
             self.optimizer = make_optimizer(model_cfg, [p for p in model.parameters() if p.requires_grad])
             num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))
@@ -594,10 +666,20 @@ class TrainEngine:
     def train(self, max_epoch=None, verbose=True):
         """Epoch loop with early stop, the best checkpoint on improvement and
         ``last/`` every ``system.save_last_every`` epochs (0: only at the end).
-        Returns {"valid_metric", "best_epoch", "model_save_dir", "run_time"}."""
+        A model with nothing to train (batch kind "none") is evaluated once
+        and checkpointed as epoch 0, as in the JAX package. Returns
+        {"valid_metric", "best_epoch", "model_save_dir", "run_time"}."""
         max_epoch = max_epoch or int(self.config.model.get("max_epoch", 100))
         save_last_every = int(self.config.system.get("save_last_every", 1))
         start = time.perf_counter()
+        if self.epoch_fn is None:  # nothing to train (KNN): evaluate once, checkpoint epoch 0
+            valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
+            if valid_result:
+                self.bookkeeper.update(0, valid_result)
+                self.save_checkpoint(epoch=0)
+            self.run_time = time.perf_counter() - start
+            return {"valid_metric": self.bookkeeper.best_valid_performance, "best_epoch": 0,
+                    "model_save_dir": self.checkpoint_dir, "run_time": self.run_time}
         epoch = -1
         for epoch in range(max_epoch):
             t0 = time.perf_counter()

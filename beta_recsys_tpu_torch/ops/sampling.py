@@ -1,8 +1,10 @@
-"""Negative sampling on the device: uniform draws and bounded rejection
-against each user's train positives.
+"""Negative sampling on the device: uniform draws, bounded rejection
+against each user's train positives, and popularity draws from an alias
+table.
 
 Counterpart of ``uniform_negatives``, ``make_membership_test``,
-``sample_negatives_rejection`` and ``sample_negatives_rejection_bitmask`` in
+``sample_negatives_rejection``, ``sample_negatives_rejection_bitmask`` and
+``alias_negatives`` (with ``alias_sample``, the same draw) in
 ``beta_recsys_tpu/ops/sampling.py``. Every function is fixed-shape and draws
 from an explicit ``torch.Generator`` on the ids' device, so nothing waits on
 the host. Ids come back as int64, torch's index type (the JAX package returns
@@ -60,3 +62,14 @@ def sample_negatives_rejection_bitmask(generator, users, shape, n_items, pos_mas
     return sample_negatives_rejection(
         generator, users, shape, n_items, lambda u, i: pos_mask[u, i], n_rounds
     )
+
+
+def alias_negatives(generator, shape, prob, alias):
+    """Ids drawn by Walker's alias method on the device: one uniform slot
+    and one uniform value a draw, the slot kept where the value lies below
+    its threshold, else its alias. ``prob`` (float32) and ``alias`` (int64)
+    are ``utils/alias_table.AliasTable``'s ``prob_arr`` and ``alias_arr``
+    on the device."""
+    idx = torch.randint(0, prob.shape[0], shape, generator=generator, device=prob.device)
+    u = torch.rand(shape, generator=generator, device=prob.device)
+    return torch.where(u < prob[idx], idx, alias[idx])

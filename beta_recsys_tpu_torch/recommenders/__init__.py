@@ -2,21 +2,27 @@
 
 Counterpart of ``beta_recsys_tpu/recommenders/__init__.py``; MF, GMF, MLP,
 NeuMF, LightGCN, NGCF, PairwiseGMF, CMN, UltraGCN, MixGCF, SimGCL, SGL,
-BUIR, LCFN, SASRec, TiSASRec, NARM and VAECF are ported so far.
+BUIR, LCFN, SASRec, TiSASRec, NARM, VAECF, Triple2vec, VBCAR, TVBR,
+UserKNN and ItemKNN: every recommender of the JAX package.
 """
 
 import numpy as np
 
 from ..convert import (
     gmf_params_from_jax,
+    knn_params_from_jax,
     lightgcn_params_from_jax,
     mf_params_from_jax,
     mlp_params_from_jax,
     ncf_params_from_jax,
     ngcf_params_from_jax,
     sasrec_params_from_jax,
+    triple2vec_params_from_jax,
+    tvbr_params_from_jax,
+    vbcar_params_from_jax,
 )
 from ..core.recommender import Recommender
+from ..data.grocery_data import GroceryData
 from ..data.sequential_data import SequentialData
 from ..models.cmn import build_item_neighborhoods
 from ..ops.ultragcn_prep import get_ii_constraint_mat
@@ -235,3 +241,57 @@ class VAECF(Recommender):
     def build_artifacts(self, data):
         rows = np.asarray(data.user_item_csr().todense(), dtype=np.float32)
         return {"user_rows": (rows > 0).astype(np.float32)}
+
+
+class Triple2vec(Recommender):
+    """Triple2vec on the basket triples of a ``GroceryData`` (its train
+    frame carries an order column)."""
+
+    model_name = "Triple2vec"
+    data_class = GroceryData
+    params_from_jax = staticmethod(triple2vec_params_from_jax)
+
+
+class VBCAR(Recommender):
+    """VBCAR over ``GroceryData.user_item_features`` of width ``late_dim``
+    (``item_fea_type`` "random": seeded normal draws)."""
+
+    model_name = "VBCAR"
+    data_class = GroceryData
+    params_from_jax = staticmethod(vbcar_params_from_jax)
+
+    def build_artifacts(self, data):
+        user_fea, item_fea = data.user_item_features(
+            fea_type=self.config.model.get("item_fea_type", "random"),
+            emb_dim=int(self.config.model.get("late_dim", 128)),
+        )
+        return {"user_fea": user_fea, "item_fea": item_fea}
+
+
+class TVBR(VBCAR):
+    """TVBR: VBCAR's features, on time-bucketed triples (``time_step``)."""
+
+    model_name = "TVBR"
+    params_from_jax = staticmethod(tvbr_params_from_jax)
+
+
+class UserKNNRecommender(Recommender):
+    """UserKNN over the train interactions; ``train`` evaluates once and
+    writes the epoch-0 checkpoint."""
+
+    model_name = "UserKNN"
+    params_from_jax = staticmethod(knn_params_from_jax)
+
+    def build_artifacts(self, data):
+        return {"interactions": data.user_item_csr()}
+
+
+class ItemKNNRecommender(UserKNNRecommender):
+    """ItemKNN over the train interactions."""
+
+    model_name = "ItemKNN"
+
+
+# The reference's class names (beta_rec/recommenders/userKNN.py, itemKNN.py).
+UserKNN = UserKNNRecommender
+ItemKNN = ItemKNNRecommender

@@ -145,12 +145,36 @@ Phases, each printed with the seconds elapsed:
      predict() -> recommend(k=10), test() reproducing the JAX package's
      metrics to 1e-4 and the port's on the CPU; then VAECF (z 10, encoder
      [20], mult) trained to early stop inside its band, its first 3 epochs
-     twice bit for bit. Phases 28-30 launch none of the kernels and are
-     profiled (``--profile seq-models``: an epoch's batch forming and 20
-     steps of each model after 5 to warm up). The profiles of phases 20-30
-     run in one child process after phase 30 (``--profile graph-models
-     capped-models ssl-models seq-models``);
- 31. a JSON line of every kernel with its launches on each path, counted
+     twice bit for bit;
+ 31. serve the JAX-trained seed-0 Triple2vec checkpoint on the structured
+     split with synthetic baskets (five of a user's train interactions a
+     basket): load -> test() -> predict() -> recommend(k=10), test()
+     reproducing the JAX package's metrics to 1e-6 and the port's on the
+     CPU; UserKNN and ItemKNN (batch kind "none": train() evaluates once)
+     at neighbourhood 50, test() reproducing the JAX package's metrics to
+     1e-6, recommend(k=10) well-formed, predict() raising as the JAX
+     package's;
+ 32. Triple2vec at its shipped config (emb 64, 100,000 basket triples drawn
+     from the seed, 5 negatives of each kind a triple, items' negatives by
+     their train frequencies through an alias table, batch 512, Adam at lr
+     5e-4) through Triple2vec(cfg).train(data), seed 0, capped at
+     GROCERY_FAMILY's epochs: best valid and test ndcg@10 inside the JAX
+     package's ten-seed bands at that cap, its first epoch twice bit for
+     bit, the trained model served as the port serves it on the CPU;
+ 33. VBCAR (variational encoders over seeded random features, six latent
+     samples a step; 10 epochs) and TVBR (VBCAR conditioned on 4 time
+     buckets; 5 epochs) the same way, each held by its band (or, where the
+     band's lower edge lies below UNTRAINED_NDCG, by its first 5 steps
+     against the CPU's).
+     Phases 28-33 launch none of the kernels and are profiled
+     (``--profile seq-models grocery-models``: an epoch's batch forming
+     and 20 steps of each model after 5 to warm up, 5 steps for phases
+     32-33; the Triple2vec checkpoint's test() and recommend(), each KNN's
+     test()); triples/s.
+     The profiles of phases 20-33 run in one child process after phase 33
+     (``--profile graph-models capped-models ssl-models seq-models
+     grocery-models``);
+ 34. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
@@ -198,8 +222,10 @@ from beta_recsys_tpu_torch.core.train_engine import (  # noqa: E402
     make_optimizer,
 )
 from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
+from beta_recsys_tpu_torch.data.grocery_data import GroceryData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
 from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E402
+from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets  # noqa: E402
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
 from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -207,6 +233,7 @@ from beta_recsys_tpu_torch.models import build_model  # noqa: E402
 from beta_recsys_tpu_torch.models import sgl as sgl_model  # noqa: E402
 from beta_recsys_tpu_torch.models import simgcl as simgcl_model  # noqa: E402
 from beta_recsys_tpu_torch.models import vaecf as vaecf_model  # noqa: E402
+from beta_recsys_tpu_torch.models import vbcar as vbcar_model  # noqa: E402
 from beta_recsys_tpu_torch.ops import attention as port_attention  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
@@ -230,8 +257,11 @@ from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     NARM,
     NGCF,
     SGL,
+    TVBR,
     VAECF,
+    VBCAR,
     GMFRecommender,
+    ItemKNN,
     LightGCN,
     MatrixFactorization,
     MixGCF,
@@ -241,7 +271,9 @@ from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     SASRec,
     SimGCL,
     TiSASRec,
+    Triple2vec,
     UltraGCN,
+    UserKNN,
 )
 from beta_recsys_tpu_torch.utils.constants import (  # noqa: E402
     DEFAULT_ITEM_COL,
@@ -506,7 +538,8 @@ SEQ_BANDS = {
               "test": (0.1476400688290596, 0.007428062552732322)},
 }
 SEQ_REPEAT_EPOCHS = {"TiSASRec": 2, "NARM": 2, "VAECF": 3}  # each model's epochs trained twice, bit for bit
-SEQ_UNITS = {"sequence_time": "sequences", "prefix": "examples", "userrow": "user rows"}  # a step's rows
+STEP_UNITS = {"sequence_time": "sequences", "prefix": "examples", "userrow": "user rows",
+              "triple": "triples"}  # a step's rows (else positives)
 # TiSASRec's band cannot fail an untrained model (its best epoch is 0 in
 # most JAX seeds): its first steps at the shipped width on the card are held
 # to the same steps through the port on the CPU, with the same batches,
@@ -518,6 +551,47 @@ VAECF_CHECKPOINT = "VAECF_default_20260821_135516_yybcvt"
 # structured split.
 EXPECTED_VAECF_METRICS = {"ndcg@10": 0.155424, "recall@10": 0.397667, "precision@10": 0.039767,
                           "map@10": 0.084868}
+# The grocery models (phases 32-33) on the structured split with the
+# synthetic baskets of examples/parity_check.py: each recommender, shipped
+# config and the epochs its training runs (the cap its JAX band is read at;
+# TVBR's step costs twice VBCAR's, so it stops at 5).
+GROCERY_FAMILY = {
+    "Triple2vec": (Triple2vec, "configs/triple2vec_default.json", 10),
+    "VBCAR": (VBCAR, "configs/vbcar_default.json", 10),
+    "TVBR": (TVBR, "configs/tvbr_default.json", 5),
+}
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the
+# JAX package's training at each shipped config, read at GROCERY_FAMILY's
+# caps (10, 10, 5) from runs of 20 epochs: `JAX_PLATFORMS=cpu python
+# port_tools/jax_grocery_band.py`. The JAX engine draws its triples
+# unseeded; the port from the run's seed.
+GROCERY_BANDS = {
+    "Triple2vec": {"valid": (0.2675051152706146, 0.005279386489104838),
+                   "test": (0.25424200743436814, 0.006551544384072174)},
+    "VBCAR": {"valid": (0.2751183331012726, 0.004591350329554184),
+              "test": (0.2673242881894112, 0.00876228929579379)},
+    "TVBR": {"valid": (0.2315541088581085, 0.010528498129963258),
+             "test": (0.2197718933224678, 0.00837311474182661)},
+}
+GROCERY_REPEAT_EPOCHS = 1  # each model's first epoch (196 steps) trained twice, bit for bit
+GROCERY_PROFILED_STEPS = 5  # steps profiled for each model of phases 32-33 (TVBR's ~970 activities a step)
+TRIPLE2VEC_CHECKPOINT = "Triple2vec_default_20260821_165054_qjaaht"
+# The JAX package's test() of the Triple2vec checkpoint (with the synthetic
+# baskets) and of UserKNN and ItemKNN at configs/userKNN_default.json and
+# itemKNN_default.json (neighbourhood_size 50) on the structured split:
+# `JAX_PLATFORMS=cpu python port_tools/jax_serving_metrics.py`. The card
+# must give them to SERVING_TOL.
+EXPECTED_TRIPLE2VEC_METRICS = {"ndcg@10": 0.2547794580459595, "recall@10": 0.541887640953064,
+                               "precision@10": 0.054188769310712814, "map@10": 0.16939899325370789}
+KNN_FAMILY = {"UserKNN": (UserKNN, "configs/userKNN_default.json"),
+              "ItemKNN": (ItemKNN, "configs/itemKNN_default.json")}
+EXPECTED_KNN_METRICS = {
+    "UserKNN": {"ndcg@10": 0.3826568126678467, "recall@10": 0.7073171138763428,
+                "precision@10": 0.07073171436786652, "map@10": 0.28375881910324097},
+    "ItemKNN": {"ndcg@10": 0.40598830580711365, "recall@10": 0.7179215550422668,
+                "precision@10": 0.07179215550422668, "map@10": 0.3105093836784363},
+}
+SERVING_TOL = 1e-6
 
 T0 = time.perf_counter()
 
@@ -2125,7 +2199,7 @@ def train_dense(rec, phase, data):
     counts = check_no_kernel(phase)
     engine = rec.engine
     trainer = engine.epoch_fn
-    unit = SEQ_UNITS.get(rec.model.batch_kind, "positives")
+    unit = STEP_UNITS.get(rec.model.batch_kind, "positives")
     negs = f" (x {trainer.neg_shape[0]} negatives)" if getattr(trainer, "neg_shape", ()) else ""
     rates = [trainer.num_batches * trainer.batch_size / s for s in engine.epoch_seconds]
     log(phase, f"{len(rates)} epochs of {trainer.num_batches} steps x {trainer.batch_size} {unit}{negs}, best "
@@ -2272,7 +2346,8 @@ def multineg_training(seed, root_dir, data):
 
 class DrawReplay:
     """Inside the block, SGL's subgraph draws, SimGCL's noise draws, the
-    dropout masks, VAECF's latent noise and the FFN's ReLU decisions of a
+    dropout masks, VAECF's and VBCAR's (TVBR's) latent noise and the FFN's
+    ReLU decisions of a
     recording run are kept in order and handed, in that order, to a
     replaying run (``replaying`` True): the same draws and the same
     branches on the card and on the CPU (a pre-activation within rounding
@@ -2299,7 +2374,7 @@ class DrawReplay:
     def __enter__(self):
         for module, name in ((sgl_model, "sgl_draws"), (simgcl_model, "perturbation_noise"),
                              (port_attention, "dropout_mask"), (vaecf_model, "latent_noise"),
-                             (port_attention, "relu_keep")):
+                             (vbcar_model, "latent_noise"), (port_attention, "relu_keep")):
             self._saved.append((module, name, getattr(module, name)))
             setattr(module, name, self._wrap(getattr(module, name)))
         return self
@@ -2568,6 +2643,16 @@ def seq_engine(name, seed, root_dir, data, device=None, **model):
     return built_engine(SEQ_FAMILY[name][0](seq_config(name, seed, root_dir, **model), device=device), data)
 
 
+def timed_test(rec):
+    """(test() row, seconds of one more test())."""
+    res = rec.test()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.test()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
 def serves_as_the_cpu(phase, rec, data, ckpt_dir, res):
     """The checkpoint at ``ckpt_dir`` served by the port on the CPU gives
     ``rec``'s test() row ``res`` to SERVE_CPU_TOL, its predict() to
@@ -2603,15 +2688,10 @@ def serve_vaecf_checkpoint(root_dir, data):
     path = os.path.join(REPO, "parity_runs/checkpoints", VAECF_CHECKPOINT)
     zero_kernel_counts()
     rec = VAECF(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
-    res = rec.test()
+    res, test_s = timed_test(rec)
     for key, want in EXPECTED_VAECF_METRICS.items():
         if abs(res[key] - want) > METRIC_TOL:
             fail(f"VAECF checkpoint test() {key} = {res[key]:.6f}, expected {want} +- {METRIC_TOL}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rec.test()
-    torch.cuda.synchronize()
-    test_s = time.perf_counter() - t0
     report = serves_as_the_cpu(phase, rec, data, path, res)
     counts = check_no_kernel(phase)
     n_eval = len(data.eval_candidates(data.test[0]).users)
@@ -2666,19 +2746,138 @@ def seq_phases(seed, root_dir):
     return counts
 
 
+# -- the grocery and neighbourhood models (phases 31-33) -------------------------
+
+
+def grocery_config(name, seed, root_dir, **model):
+    """The shipped config capped at its band's epochs (GROCERY_FAMILY)."""
+    return shipped_config(GROCERY_FAMILY[name][1], seed, root_dir, **{"max_epoch": GROCERY_FAMILY[name][2], **model})
+
+
+def grocery_split():
+    """The structured split with examples/parity_check.py's synthetic
+    baskets (each user's train interactions in timestamp order, five to a
+    basket), as a GroceryData."""
+    train, valid, test = load_split_data(SPLIT, n_test=1)
+    return GroceryData((add_synthetic_baskets(train), valid, test))
+
+
+def grocery_engine(name, seed, root_dir, data, device=None, **model):
+    """``built_engine`` at the capped shipped config."""
+    return built_engine(GROCERY_FAMILY[name][0](grocery_config(name, seed, root_dir, **model), device=device), data)
+
+
+def held_to(phase, got, want, what):
+    """Each metric of ``want`` in the test() row ``got`` to SERVING_TOL."""
+    gap = max(abs(got[key] - value) for key, value in want.items())
+    if gap > SERVING_TOL:
+        fail(f"{phase}: {what} test() " + ", ".join(f"{key} {got[key]:.7f}" for key in want)
+             + f" differs from the JAX package's {want} by {gap} (limit {SERVING_TOL})")
+    return ", ".join(f"{key} {got[key]:.6f}" for key in want) + f" (the JAX package's within {gap:.2g})"
+
+
+def serve_grocery_and_knn(seed, root_dir, data):
+    """Phase 31: the JAX-trained seed-0 Triple2vec checkpoint's load, test(),
+    predict() and recommend() against the JAX package's metrics and the
+    port on the CPU; UserKNN and ItemKNN at neighbourhood 50 trained (one
+    evaluation, no epoch) and tested against the JAX package's metrics,
+    recommend() well-formed and predict() raising as the JAX package's.
+    Returns the kernels' counts by path."""
+    counts = {}
+    n_eval = len(data.eval_candidates(data.test[0]).users)
+    phase = "triple2vec-serve"
+    path = os.path.join(REPO, "parity_runs/checkpoints", TRIPLE2VEC_CHECKPOINT)
+    zero_kernel_counts()
+    rec = Triple2vec(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
+    res, test_s = timed_test(rec)
+    report = held_to(phase, res, EXPECTED_TRIPLE2VEC_METRICS, "the Triple2vec checkpoint's")
+    log(phase, f"test() {report}; {serves_as_the_cpu(phase, rec, data, path, res)}; test() "
+        f"{n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms)")
+    counts[phase] = check_no_kernel(phase)
+    knn_data = mf_split()
+    for name, (cls, config) in KNN_FAMILY.items():
+        phase = f"{name.lower()}-serve"
+        zero_kernel_counts()
+        rec = cls(shipped_config(config, seed, root_dir))
+        result = rec.train(knn_data)
+        if rec.engine.epoch_fn is not None or result["best_epoch"] != 0:
+            fail(f"{phase}: train() ran epochs ({result}); the batch kind 'none' evaluates once")
+        res, test_s = timed_test(rec)
+        report = held_to(phase, res, EXPECTED_KNN_METRICS[name], name)
+        recs = rec.recommend(k=10)
+        torch.cuda.synchronize()
+        check_recommendations(recs, knn_data, 10, knn_data.n_users)
+        try:
+            rec.predict({c: knn_data.test[0][c][:10] for c in (DEFAULT_USER_COL, DEFAULT_ITEM_COL)})
+            fail(f"{phase}: predict() returned scores; the JAX {name} raises NotImplementedError")
+        except NotImplementedError:
+            pass
+        log(phase, f"neighbourhood {rec.model.k}: train() one evaluation in {result['run_time'] * 1e3:.2f} ms; "
+            f"test() {report}, {n_eval / test_s:.1f} users/s ({test_s * 1e3:.2f} ms); recommend(k=10) "
+            f"{knn_data.n_users} users well-formed, no train item; predict() raises NotImplementedError, as the "
+            "JAX package's")
+        counts[phase] = check_no_kernel(phase)
+    return counts
+
+
+def grocery_training(name, seed, root_dir, data):
+    """One model of phases 32-33: (where its band's lower edge lies below
+    UNTRAINED_NDCG) its first steps against the CPU's, its capped training
+    against the JAX band, its serving against the CPU's, and its first
+    epochs twice bit for bit. Returns the kernels' counts on its path."""
+    phase = f"{name.lower()}-train"
+    cls, _, cap = GROCERY_FAMILY[name]
+    band = GROCERY_BANDS[name]
+    weak = [key for key in band if band[key][0] - 3 * band[key][1] < UNTRAINED_NDCG]
+    if weak:
+        start, engine = grocery_engine(name, seed, root_dir, data)
+        diff, _, eps_set = steps_match_cpu(phase, start, engine, data, SEQ_CPU_STEPS, SSL_CPU_TOL, SSL_EPS_SET)
+        log(phase, f"{SEQ_CPU_STEPS} Adam steps at emb {engine.model.emb_dim} from the initial weights equal the "
+            f"CPU's on the same batches and noise: {describe_steps(diff, SSL_CPU_TOL)}{eps_set}; the band's lower "
+            f"edge ({', '.join(weak)}) lies below {UNTRAINED_NDCG}, so these steps are the check that can fail an "
+            "untrained model")
+    rec, result, res, _ = train_dense(cls(grocery_config(name, seed, root_dir)), phase, data)
+    trainer = rec.engine.epoch_fn
+    held = band_position if weak else in_band
+    log(phase, f"(cap {cap} epochs; {trainer.n} triples drawn from the seed, {trainer.n_neg} negatives of each "
+        "kind a triple) " + held("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+        + held("test ndcg@10", res["ndcg@10"], band["test"])
+        + ("; reported, not held: the steps above hold this model" if weak else ""))
+    log(phase, serves_as_the_cpu(phase, rec, data, result["model_save_dir"], res))
+    counts = check_no_kernel(phase)  # since train_dense zeroed them: train(), test() and the serving
+    repeats_bit_for_bit(name, phase, seed, GROCERY_REPEAT_EPOCHS, lambda p, epochs: train_dense(
+        cls(grocery_config(name, seed, root_dir, max_epoch=epochs)), p, data), flatten_params)
+    return counts
+
+
+def grocery_phases(seed, root_dir):
+    """Phases 31-33 (profiled by ``--profile grocery-models``). Returns the
+    kernels' counts by path (all 0)."""
+    data = grocery_split()
+    t0 = time.perf_counter()
+    counts = serve_grocery_and_knn(seed, root_dir, data)
+    log("knn-serve", f"phase 31 took {time.perf_counter() - t0:.2f} s")
+    for name in GROCERY_FAMILY:
+        t0 = time.perf_counter()
+        counts[f"{name.lower()}-train"] = grocery_training(name, seed, root_dir, data)
+        log(f"{name.lower()}-train", f"phase took {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
 PROFILE_SEQ = "seq-models"  # phases 28-30's profiles
-# All four run in one child process after phase 30 (one process start, not four).
-PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ)
+PROFILE_GROCERY = "grocery-models"  # phases 31-33's profiles
+# All five run in one child process after phase 33 (one process start, not five).
+PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ, PROFILE_GROCERY)
 PROFILED_CAPPED_STEPS = 20  # training steps profiled for each model of phases 21-22 and 24-30
 
 
 def profile_phase(phase, seed):
-    """``--profile``: the profiled calls of phases 20-22, 23-25, 26-27 or
-    28-30 together, in this process alone. A profile without CUDA events
-    prints a WARNING line."""
+    """``--profile``: the profiled calls of phases 20-22, 23-25, 26-27,
+    28-30 or 31-33 together, in this process alone. A profile without CUDA
+    events prints a WARNING line."""
 
     def report(what, text):
         print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {what}: {text}", flush=True)
@@ -2727,15 +2926,29 @@ def profile_phase(phase, seed):
                 if name == "CMN":
                     report("CMN test()", device_breakdown(rec.test))
             return
-        if phase in (PROFILE_SSL, PROFILE_SEQ):
-            family, engine_of = (SSL_FAMILY, ssl_engine) if phase == PROFILE_SSL else (SEQ_FAMILY, seq_engine)
-            data = data if phase == PROFILE_SSL else seq_split()
+        if phase == PROFILE_GROCERY:
+            data = grocery_split()
+            path = os.path.join(REPO, "parity_runs/checkpoints", TRIPLE2VEC_CHECKPOINT)
+            rec = Triple2vec(load_config(path).replace(system={"root_dir": root_dir})).load(path, data)
+            rec.test()
+            rec.recommend(k=10)
+            report("Triple2vec test()", device_breakdown(rec.test))
+            report("Triple2vec recommend()", device_breakdown(lambda: rec.recommend(k=10)))
+            for name, (cls, config) in KNN_FAMILY.items():
+                rec = cls(shipped_config(config, seed, root_dir))
+                rec.train(mf_split())
+                rec.test()
+                report(f"{name} test()", device_breakdown(rec.test))
+        if phase in (PROFILE_SSL, PROFILE_SEQ, PROFILE_GROCERY):
+            family, engine_of = {PROFILE_SSL: (SSL_FAMILY, ssl_engine), PROFILE_SEQ: (SEQ_FAMILY, seq_engine),
+                                 PROFILE_GROCERY: (GROCERY_FAMILY, grocery_engine)}[phase]
+            data = seq_split() if phase == PROFILE_SEQ else data
+            steps = GROCERY_PROFILED_STEPS if phase == PROFILE_GROCERY else PROFILED_CAPPED_STEPS
             for name in family:
                 _, engine = engine_of(name, seed, root_dir, data)
                 trainer = engine.epoch_fn
                 trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
-                report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, engine.generator,
-                                                                           PROFILED_CAPPED_STEPS, top=8))
+                report(f"{name} {steps} steps", profile_window(trainer, engine.generator, steps, top=8))
             return
 
 
@@ -2747,8 +2960,8 @@ def main():
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
     parser.add_argument("--profile", nargs="+", choices=PROFILES,
-                        help="profile phases 20-22, 23-25, 26-27 and/or 28-30 in this process alone (the main run "
-                             "runs all four in one child)")
+                        help="profile phases 20-22, 23-25, 26-27, 28-30 and/or 31-33 in this process alone (the "
+                             "main run runs all five in one child)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2861,8 +3074,9 @@ def main():
         graph_counts.update(capped_phases(args.seed, root_dir))
         graph_counts.update(ssl_phases(args.seed, root_dir))
         graph_counts.update(seq_phases(args.seed, root_dir))
+        graph_counts.update(grocery_phases(args.seed, root_dir))
         profiled_in_child(PROFILES, args.seed)
-    for path, counts in graph_counts.items():  # phases 17-30: every count 0 (check_no_kernel)
+    for path, counts in graph_counts.items():  # phases 17-33: every count 0 (check_no_kernel)
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

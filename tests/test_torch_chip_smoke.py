@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 from beta_recsys_tpu_torch.utils.constants import (
     DEFAULT_ITEM_COL,
+    DEFAULT_ORDER_COL,
     DEFAULT_PREDICTION_COL,
     DEFAULT_RATING_COL,
     DEFAULT_TIMESTAMP_COL,
@@ -491,3 +492,134 @@ def test_draw_replay_hands_the_ffn_relu_decisions_over():
         flipped = pointwise_ffn(x, {**p, "w1": -p["w1"]})  # every sign flips; the recorded branches stay
         assert torch.equal(flipped, x - torch.where(x @ p["w1"] > 0, x @ p["w1"], 0.0))
         assert not replay.queue
+
+
+@pytest.mark.parametrize("name,widths,lr,cap", [("Triple2vec", {"emb_dim": 64, "use_bias": True}, 5e-4, 10),
+                                                ("VBCAR", {"emb_dim": 64, "late_dim": 128, "alpha": 0.05}, 1e-3, 10),
+                                                ("TVBR", {"emb_dim": 64, "late_dim": 128, "time_step": 4}, 1e-3, 5)])
+def test_grocery_config_is_the_shipped_config_at_its_cap(name, widths, lr, cap):
+    cfg = chip_smoke.grocery_config(name, 3, "/nowhere")
+    m = cfg.model
+    assert (cfg.system.seed, cfg.dataset.dataset, cfg.dataset.n_test) == (3, "synthetic_structured", 1)
+    assert (m.model, m.batch_size, m.optimizer, m.lr, m.max_epoch, m.n_sample, m.n_neg) == (
+        name, 512, "adam", lr, cap, 100_000, 5)
+    assert all(m.get(key) == value for key, value in widths.items())
+    assert chip_smoke.grocery_config(name, 3, "/x", max_epoch=2).model.max_epoch == 2
+    band = chip_smoke.GROCERY_BANDS[name]
+    assert set(band) == {"valid", "test"} and all(0 < mean < 1 and 0 < std < 0.1 for mean, std in band.values())
+    # Every band's lower edge lies far above random ranking: the bands hold the models.
+    assert all(mean - 3 * std > chip_smoke.UNTRAINED_NDCG for mean, std in band.values())
+
+
+def test_the_served_triple2vec_checkpoint_is_in_the_repo_and_the_chip_copy():
+    path = os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.TRIPLE2VEC_CHECKPOINT)
+    assert os.path.exists(os.path.join(path, "checkpoint.msgpack"))
+    with open(os.path.join(REPO, ".chiprunignore")) as f:
+        ignored = [line.strip() for line in f if line.strip() and not line.startswith("#")]
+    assert not any(fnmatch.fnmatch("parity_runs/checkpoints/" + chip_smoke.TRIPLE2VEC_CHECKPOINT, pattern)
+                   for pattern in ignored)
+    others = [d for d in os.listdir(os.path.join(REPO, "parity_runs/checkpoints"))
+              if d.startswith("Triple2vec_") and d != chip_smoke.TRIPLE2VEC_CHECKPOINT]
+    assert others and all(any(fnmatch.fnmatch("parity_runs/checkpoints/" + d, p) for p in ignored) for d in others)
+
+
+def test_the_grocery_split_carries_the_parity_baskets():
+    data = chip_smoke.grocery_split()
+    train = chip_smoke.load_split_data(chip_smoke.SPLIT, n_test=1)[0]
+    orders = data.train[DEFAULT_ORDER_COL]
+    assert np.array_equal(orders // 100_000, train[DEFAULT_USER_COL])
+    assert np.bincount(np.unique(orders, return_inverse=True)[1]).max() == 5
+    assert (data.n_users, data.n_items) == (943, 1682)
+
+
+@pytest.fixture
+def none_is_the_cpu(monkeypatch):
+    """Recommenders and models built without a device go to the CPU, and
+    the card's synchronisation and memory counters do nothing."""
+    from beta_recsys_tpu_torch.core import recommender
+    from beta_recsys_tpu_torch.models import base
+
+    for module in (recommender, base):
+        monkeypatch.setattr(module, "resolve_device", lambda device=None: torch.device(device or "cpu"))
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+
+
+def test_phase_31_serves_the_jax_metrics_on_the_cpu(tmp_path, none_is_the_cpu):
+    """The Triple2vec checkpoint and the two KNN models served on the CPU
+    give the JAX package's metrics that the card is held to (1e-6), with
+    no kernel; a moved constant fails."""
+    data = chip_smoke.grocery_split()
+    counts = chip_smoke.serve_grocery_and_knn(0, str(tmp_path), data)
+    assert set(counts) == {"triple2vec-serve", "userknn-serve", "itemknn-serve"}
+    assert not any(any(c.values()) for c in counts.values())
+    wrong = {**chip_smoke.EXPECTED_KNN_METRICS["UserKNN"], "ndcg@10": 0.3826548}
+    with pytest.raises(SystemExit):
+        chip_smoke.held_to("userknn-serve", chip_smoke.EXPECTED_KNN_METRICS["UserKNN"], wrong, "UserKNN")
+
+
+def test_grocery_training_runs_its_checks_on_the_cpu(tmp_path, monkeypatch, none_is_the_cpu):
+    """Triple2vec through phase 32's checks on the CPU at a narrow width and
+    2,000 triples, one epoch: with a band that reaches below random ranking
+    the first steps are held to a second run (the CPU against itself), the
+    band is reported, the trained model serves as the CPU serves it, and
+    two more trainings repeat bit for bit."""
+    real = chip_smoke.shipped_config
+    monkeypatch.setattr(chip_smoke, "shipped_config", lambda path, seed, root, **model: real(
+        path, seed, root, **{"n_sample": 2000, "emb_dim": 8, **model}))
+    monkeypatch.setitem(chip_smoke.GROCERY_FAMILY, "Triple2vec", (chip_smoke.Triple2vec,
+                                                                  "configs/triple2vec_default.json", 1))
+    monkeypatch.setitem(chip_smoke.GROCERY_BANDS, "Triple2vec", {"valid": (0.05, 0.01), "test": (0.05, 0.01)})
+    monkeypatch.setattr(chip_smoke, "GROCERY_REPEAT_EPOCHS", 1)
+    logged = []
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: logged.append(msg))
+    counts = chip_smoke.grocery_training("Triple2vec", 0, str(tmp_path), chip_smoke.grocery_split())
+    assert not any(counts.values())
+    text = "\n".join(logged)
+    assert "5 Adam steps at emb 8" in text and "2000 triples drawn from the seed" in text
+    assert "reported, not held" in text and "the CPU's lists for every user" in text
+    assert "gave the same best and last parameters" in text
+
+
+def test_steps_match_cpu_hands_vbcars_latent_noise_over(tmp_path):
+    """VBCAR and TVBR at a narrow width, both runs on the CPU: with the
+    noise replayed the steps agree within the limit, and the draw function
+    comes back after the block."""
+    data = chip_smoke.grocery_split()
+    for name in ("VBCAR", "TVBR"):
+        start, engine = chip_smoke.grocery_engine(name, 0, str(tmp_path), data, "cpu", emb_dim=4, late_dim=4,
+                                                  n_sample=3000)
+        real = chip_smoke.vbcar_model.latent_noise
+        diff, _, _ = chip_smoke.steps_match_cpu(f"{name.lower()}-train", start, engine, data, 2,
+                                                chip_smoke.SSL_CPU_TOL, chip_smoke.SSL_EPS_SET)
+        assert chip_smoke.vbcar_model.latent_noise is real
+        assert set(diff) == {"loss", "parameters", "exp_avg", "exp_avg_sq"} and max(diff.values()) < 1e-5
+
+
+@pytest.mark.parametrize("name", ["Triple2vec", "TVBR"])
+def test_profile_window_takes_the_triple_trainer(name, tmp_path, monkeypatch):
+    """The profiled callable forms the epoch's order and negatives (the
+    generator advances inside it) and trains ``steps`` steps."""
+    data = chip_smoke.grocery_split()
+    _, engine = chip_smoke.grocery_engine(name, 0, str(tmp_path), data, "cpu", emb_dim=4, late_dim=4,
+                                          n_sample=3000)
+    trainer, generator = engine.epoch_fn, engine.generator
+    seen = {}
+
+    def breakdown(fn, steps=None, **kwargs):
+        state = generator.get_state()
+        seen["loss"], seen["steps"] = fn(), steps
+        seen["drew"] = not torch.equal(state, generator.get_state())
+        return "profiled"
+
+    monkeypatch.setattr(chip_smoke, "device_breakdown", breakdown)
+    calls = []
+    run_batches = trainer.run_batches
+    monkeypatch.setattr(trainer, "run_batches", lambda *a, **k: calls.append([x.shape for x in a]) or run_batches(
+        *a, **k))
+    assert chip_smoke.profile_window(trainer, generator, 2) == "profiled"
+    b = trainer.batch_size
+    assert seen["drew"] and seen["steps"] == 2 and np.isfinite(seen["loss"])
+    assert calls == [[(2, b), (2, b, 5), (2, b, 5), (2, b, 5)]]

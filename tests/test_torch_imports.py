@@ -60,6 +60,30 @@ from beta_recsys_tpu_torch.parallel.mesh import make_mesh
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather
 make_mesh(1, 4, ["cpu"] * 4)
 ring_allgather([chip_smoke.torch.zeros(8, 4) for _ in range(3)])
+for name in chip_smoke.GROCERY_FAMILY:
+    chip_smoke.grocery_config(name, 0, "unused")
+from beta_recsys_tpu_torch.core.train_engine import TripleEpochTrainer, alias_tables
+from beta_recsys_tpu_torch.data.grocery_data import GroceryData
+from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets
+from beta_recsys_tpu_torch.models.knn import ItemKNN, UserKNN
+from beta_recsys_tpu_torch.models.triple2vec import Triple2vec
+from beta_recsys_tpu_torch.models.tvbr import TVBR
+from beta_recsys_tpu_torch.models.vbcar import VBCAR, latent_noise as vbcar_noise
+from beta_recsys_tpu_torch.ops.sampling import alias_negatives
+from beta_recsys_tpu_torch.recommenders import ItemKNN as ItemKNNRecommender, Triple2vec as Triple2vecRecommender
+from beta_recsys_tpu_torch.recommenders import TVBR as TVBRRecommender, UserKNN as UserKNNRecommender
+from beta_recsys_tpu_torch.recommenders import VBCAR as VBCARRecommender
+from beta_recsys_tpu_torch.utils.triple_sampler import Sampler
+frame = dict(col_user=chip_smoke.np.array([0, 0, 1]), col_item=chip_smoke.np.array([1, 2, 0]),
+             col_rating=chip_smoke.np.ones(3, chip_smoke.np.float32), col_timestamp=chip_smoke.np.array([3, 1, 2]))
+frame = add_synthetic_baskets(frame, 2)
+data = GroceryData((frame, frame, frame))
+data.sample_triples(6, time_step=2, seed=0)
+data.user_item_features(emb_dim=3)
+prob, alias = alias_tables(frame["col_item"], 3, "cpu")
+alias_negatives(None, (2, 3), prob, alias)
+vbcar_noise(None, (2, 3), "cpu")
+UserKNN(dict(), 2, 3, dict(interactions=chip_smoke.np.eye(2, 3)), device="cpu")
 print(len(names))
 """
 

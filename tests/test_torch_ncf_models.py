@@ -16,6 +16,7 @@ import beta_recsys_tpu.models.ncf as jax_ncf_module
 from beta_recsys_tpu.core.eval_engine import RankingEvaluator as JaxRankingEvaluator
 from beta_recsys_tpu.data.base_data import EvalCandidates as JaxEvalCandidates
 from beta_recsys_tpu.models import losses as jax_losses
+from beta_recsys_tpu.models import MODEL_REGISTRY
 from beta_recsys_tpu.models.gmf import GMF as JaxGMF
 from beta_recsys_tpu.models.mlp import MLP as JaxMLP
 from beta_recsys_tpu.models.ncf import NeuMF as JaxNeuMF
@@ -221,8 +222,10 @@ def test_registry_holds_the_jax_names():
     for key, cls in (("GMF", GMF), ("MLP", MLP), ("NCF", NeuMF), ("NeuMF", NeuMF), ("ncf", NeuMF)):
         assert MODELS[key] is cls
         assert isinstance(build_model(_config(key), 5, 6, device="cpu"), cls)
-    with pytest.raises(ValueError, match="not ported"):
-        build_model({"model": "Triple2vec"}, 5, 6, device="cpu")  # a model still to port
+    # Every name of the JAX registry is ported; another name raises.
+    assert set(MODEL_REGISTRY) <= set(MODELS)
+    with pytest.raises(ValueError, match="Unknown model"):
+        build_model({"model": "NoSuchModel"}, 5, 6, device="cpu")
 
 
 def _pretrained(seed):
