@@ -14,6 +14,11 @@ arrays become lists, and flax's extension types become numpy values:
 ``msgpack_serialize`` writes a tree of dicts, lists, numbers, strings and
 numpy arrays as ``flax.serialization.msgpack_serialize`` does (arrays as ext
 code 1), so the JAX package reads what the port writes.
+
+``system.checkpoint_backend`` may be "flax" (this msgpack file) or absent.
+The JAX package's "orbax" backend writes an ``orbax_state/`` directory
+through orbax, which the card's machine does not have: that backend raises
+``NotImplementedError``, on writing and on reading, and is not to be ported.
 """
 
 import json
@@ -26,8 +31,23 @@ _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 
 
-def save_checkpoint(ckpt_dir, state, name="checkpoint.msgpack"):
+_ORBAX_SUBDIR = "orbax_state"
+
+
+def check_backend(backend):
+    """Raise unless ``backend`` is "flax" or None (the msgpack file)."""
+    if backend == "orbax":
+        raise NotImplementedError(
+            "checkpoint_backend 'orbax' is not ported: the port has no orbax and writes the JAX package's "
+            "'flax' msgpack file; set system.checkpoint_backend to 'flax' or leave it out"
+        )
+    if backend not in (None, "flax"):
+        raise ValueError(f"unknown checkpoint_backend {backend!r}; use 'flax'")
+
+
+def save_checkpoint(ckpt_dir, state, name="checkpoint.msgpack", backend="flax"):
     """Write a tree of dicts and numpy arrays as ``checkpoint.msgpack``."""
+    check_backend(backend)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name)
     with open(path, "wb") as f:
@@ -46,9 +66,15 @@ def load_metadata(ckpt_dir, name="metadata.json"):
         return json.load(f)
 
 
-def load_raw_checkpoint(ckpt_dir, name="checkpoint.msgpack"):
-    """The checkpoint's whole state tree (params, opt_state, rng, ...)."""
-    with open(os.path.join(ckpt_dir, name), "rb") as f:
+def load_raw_checkpoint(ckpt_dir, name="checkpoint.msgpack", backend=None):
+    """The checkpoint's whole state tree (params, opt_state, rng, ...). A
+    directory that holds only an orbax checkpoint raises, as does
+    ``backend="orbax"``."""
+    check_backend(backend)
+    path = os.path.join(ckpt_dir, name)
+    if not os.path.exists(path) and os.path.isdir(os.path.join(ckpt_dir, _ORBAX_SUBDIR)):
+        check_backend("orbax")
+    with open(path, "rb") as f:
         return msgpack_restore(f.read())
 
 

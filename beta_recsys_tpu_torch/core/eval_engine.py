@@ -1,10 +1,16 @@
-"""Ranked evaluation over fixed candidate sets, early-stop bookkeeping and
-the final-test record.
+"""Ranked evaluation over fixed candidate sets or the full catalog,
+early-stop bookkeeping and the final-test record.
 
-Counterpart of ``RankingEvaluator``, ``EvalBookkeeper`` and ``test_eval`` in
-``beta_recsys_tpu/core/eval_engine.py``: one call scores every user's
-candidate set and reduces every metric@k on the model's device; the metric
-values reach the host in one transfer.
+Counterpart of ``RankingEvaluator``, ``FullCatalogEvaluator``,
+``TopKRetrievalEvaluator``, ``EvalBookkeeper`` and ``test_eval`` in
+``beta_recsys_tpu/core/eval_engine.py``. ``RankingEvaluator`` scores every
+user's candidate set and reduces every metric@k on the model's device in
+one call; the metric values reach the host in one transfer. The two
+full-catalog evaluators score users in blocks against every item; each
+block's relevance and exclusion masks are built on the device from index
+arrays cached at construction. The JAX package pads every block to one
+shape so XLA compiles once; PyTorch has no such need, so the last block is
+simply shorter. Evaluators score with the model's current parameters.
 """
 
 import csv
@@ -14,8 +20,15 @@ import time
 import numpy as np
 import torch
 
-from ..ops.metrics import ranking_metrics
+from ..ops.metrics import metrics_from_top, ranking_metrics
+from ..ops.topk import NEG_INF, exclusion_lists, retrieval_topk, streaming_topk
 from ..utils.constants import MAX_N_UPDATE
+
+DEFAULT_METRICS = ("ndcg", "precision", "recall", "map")
+
+# The fast retrieval route's bound on k + the largest train degree, as in the
+# JAX package: beyond it the streaming route with an exclusion mask.
+FAST_RETRIEVAL_WIDTH = 256
 
 
 class RankingEvaluator:
@@ -38,6 +51,148 @@ class RankingEvaluator:
         out = ranking_metrics(scores, self.relevance, self.mask, self.metrics, self.ks)
         values = torch.stack(list(out.values())).cpu().tolist()
         return dict(zip(out, values))
+
+
+def _canonical(csr):
+    """A CSR copy with duplicate entries summed, as ``todense()`` sums them."""
+    csr = csr.tocsr(copy=True)
+    csr.sum_duplicates()
+    return csr
+
+
+def _coo_on(csr, rows, device):
+    """(row, col, value) tensors of ``csr[rows]`` on ``device``."""
+    sub = csr[rows].tocoo()
+    return (torch.as_tensor(sub.row, dtype=torch.long, device=device),
+            torch.as_tensor(sub.col, dtype=torch.long, device=device),
+            torch.as_tensor(sub.data, dtype=torch.float32, device=device))
+
+
+def _dense(coo, n_rows, n_cols, device):
+    rows, cols, vals = coo
+    return torch.zeros((n_rows, n_cols), dtype=torch.float32, device=device).index_put_((rows, cols), vals)
+
+
+class FullCatalogEvaluator:
+    """Full-catalog ranked evaluation: each user's scores over every item,
+    train positives (summed train rating > 0) set to ``NEG_INF``, then the
+    candidate metrics with every item a candidate. ``users`` are dense user
+    ids; ``relevance_csr`` and ``train_csr`` are (n_users, n_items) scipy
+    sparse matrices whose duplicate entries are summed. ``evaluate()``
+    returns the mean of every metric@k over the users ({} for none), keys
+    sorted as the JAX package's ``device_get`` of a dict returns them."""
+
+    def __init__(self, model, users, relevance_csr, train_csr, metrics=DEFAULT_METRICS, ks=(5, 10, 20),
+                 user_block=1024):
+        self.model = model
+        self.metrics = tuple(metrics)
+        self.ks = tuple(int(k) for k in ks)
+        self.user_block = int(user_block)
+        self.users = np.asarray(users, dtype=np.int64)
+        relevance_csr, train_csr = _canonical(relevance_csr), _canonical(train_csr)
+        device = model.device
+        self._blocks = []
+        for start in range(0, len(self.users), self.user_block):
+            blk = self.users[start:start + self.user_block]
+            self._blocks.append((torch.as_tensor(blk, device=device), _coo_on(relevance_csr, blk, device),
+                                 _coo_on(train_csr, blk, device)))
+
+    @torch.no_grad()
+    def evaluate(self):
+        model, n_items = self.model, self.model.n_items
+        totals = {}
+        with model.holding_embeddings():
+            for users, rel_coo, trn_coo in self._blocks:
+                n = users.shape[0]
+                relevance = _dense(rel_coo, n, n_items, users.device)
+                seen = _dense(trn_coo, n, n_items, users.device) > 0
+                scores = model.score_all(users)[:, :n_items].masked_fill(seen, NEG_INF)
+                mask = torch.ones_like(seen)
+                out = ranking_metrics(scores, relevance, mask, self.metrics, self.ks)
+                values = torch.stack(list(out.values())).cpu().tolist()
+                for key, value in zip(out, values):
+                    # a block's mean times its rows is its per-user sum
+                    totals[key] = totals.get(key, 0.0) + value * n
+        return {key: totals[key] / max(len(self.users), 1) for key in sorted(totals)}
+
+
+class TopKRetrievalEvaluator:
+    """Full-catalog ranked evaluation of a factorized model through top-k
+    retrieval: per user block, the ``max(ks)`` best items with every stored
+    train entry excluded, then the metrics on the device from those items'
+    relevance and each user's relevant count (``metrics_from_top``, the
+    formulas of the JAX package's host code), each block's means weighted
+    by its rows.
+    While ``max(ks)`` + the users' largest train degree is at most
+    ``FAST_RETRIEVAL_WIDTH``, ``retrieval_topk`` with per-user exclusion
+    lists (bfloat16 scores with ``mode="approx"``); otherwise
+    ``streaming_topk`` over ``item_block`` items a step with an exclusion
+    mask. With no users every metric is 0, as in the JAX package."""
+
+    def __init__(self, model, users, relevance_csr, train_csr, metrics=DEFAULT_METRICS, ks=(5, 10, 20),
+                 user_block=1024, item_block=8192, mode="exact"):
+        if mode not in ("exact", "approx"):
+            raise ValueError(f"mode must be 'exact' or 'approx'; got {mode!r}")
+        self.model = model
+        self.metrics = tuple(metrics)
+        self.ks = tuple(int(k) for k in ks)
+        self.max_k = max(self.ks)
+        self.user_block = int(user_block)
+        self.item_block = int(item_block)
+        self.mode = mode
+        self.users = np.asarray(users, dtype=np.int64)
+        relevance_csr, train_csr = _canonical(relevance_csr), _canonical(train_csr)
+        degrees = np.diff(train_csr.indptr)[self.users] if len(self.users) else np.zeros(0, np.int64)
+        self.max_deg = int(degrees.max()) if len(degrees) else 0
+        self.use_fast = self.max_k + self.max_deg <= FAST_RETRIEVAL_WIDTH
+        device = model.device
+        self._blocks = []
+        for start in range(0, len(self.users), self.user_block):
+            blk = self.users[start:start + self.user_block]
+            rel = relevance_csr[blk]
+            r_deg = np.diff(rel.indptr)
+            width = max(int(r_deg.max()) if len(r_deg) else 0, 1)
+            # each user's relevant items padded with n_items ("none"), and their values
+            rel_items = np.full((len(blk), width), model.n_items, np.int64)
+            rel_vals = np.zeros((len(blk), width), np.float32)
+            rows = np.repeat(np.arange(len(blk)), r_deg)
+            cols = np.arange(len(rows)) - np.repeat(rel.indptr[:-1], r_deg)
+            rel_items[rows, cols] = rel.indices
+            rel_vals[rows, cols] = rel.data
+            actual = np.asarray(rel.sum(axis=1), dtype=np.float32).flatten()
+            if self.use_fast:
+                exclusion = torch.as_tensor(exclusion_lists(train_csr[blk]), device=device)
+            else:
+                exclusion = _coo_on(train_csr, blk, device)[:2]
+            self._blocks.append((torch.as_tensor(blk, device=device), exclusion,
+                                 torch.as_tensor(rel_items, device=device),
+                                 torch.as_tensor(rel_vals, device=device), torch.as_tensor(actual, device=device)))
+
+    def _top_items(self, u_emb, i_emb, exclusion):
+        if self.use_fast:
+            _, idx = retrieval_topk(u_emb, i_emb, self.max_k, exclude_list=exclusion, mode=self.mode,
+                                    score_dtype="bfloat16" if self.mode == "approx" else None)
+            return idx
+        rows, cols = exclusion
+        mask = torch.zeros((u_emb.shape[0], i_emb.shape[0]), dtype=torch.bool, device=u_emb.device)
+        mask[rows, cols] = True
+        _, idx = streaming_topk(u_emb, i_emb, self.max_k, block=self.item_block, exclude_mask=mask)
+        return idx
+
+    @torch.no_grad()
+    def evaluate(self):
+        totals = {f"{m}@{k}": 0.0 for m in self.metrics for k in self.ks}
+        u_all, i_all = self.model.user_item_embeddings_trimmed()
+        for users, exclusion, rel_items, rel_vals, actual in self._blocks:
+            idx = self._top_items(u_all[users], i_all, exclusion)
+            hit = idx[:, :, None] == rel_items[:, None, :]
+            top_rel = (hit * rel_vals[:, None, :]).sum(dim=2)
+            out = metrics_from_top(top_rel, actual, self.metrics, self.ks)
+            values = torch.stack(list(out.values())).cpu().tolist()
+            for key, value in zip(out, values):
+                totals[key] += value * users.shape[0]
+        n = max(len(self.users), 1)
+        return {key: value / n for key, value in totals.items()}
 
 
 class EvalBookkeeper:
@@ -69,11 +224,17 @@ class EvalBookkeeper:
         return self.n_no_update >= self.max_n_update
 
 
-def test_eval(evaluators, result_file=None, result_para=None, run_time=None):
+def test_eval(evaluators, result_file=None, result_para=None, run_time=None, save_mode="average",
+              per_user_file=None):
     """Evaluate each of the n_test candidate copies; return the mean row and
     the per-copy rows. With ``result_file``, the mean row (metric columns in
     sorted order, then run_time, time and the ``result_para`` columns, as the
-    JAX package writes them) is appended to that CSV."""
+    JAX package writes them) is appended to that CSV. With ``save_mode``
+    "per_user" and ``per_user_file``, the first copy's candidates are also
+    written there, one row each: col_user, col_item, col_rating (the
+    relevance) and col_prediction (``write_per_user``)."""
+    if save_mode not in ("average", "per_user"):
+        raise ValueError(f"unknown save_mode {save_mode!r}; use 'average' or 'per_user'")
     rows = [ev.evaluate() for ev in evaluators]
     mean_row = {k: float(np.mean([r[k] for r in rows])) for k in sorted(rows[0])} if rows else {}
     if result_file:
@@ -84,7 +245,27 @@ def test_eval(evaluators, result_file=None, result_para=None, run_time=None):
         for k, v in (result_para or {}).items():
             record[k] = str(v)
         append_csv_row(record, result_file)
+    if save_mode == "per_user" and evaluators and per_user_file:
+        write_per_user(evaluators[0], per_user_file)
     return mean_row, rows
+
+
+@torch.no_grad()
+def write_per_user(evaluator, path):
+    """A ``RankingEvaluator``'s scored candidates as CSV, a row per valid
+    slot in user-major order, with the JAX package's header; numbers as
+    pandas' ``to_csv`` writes them (shortest round-trip reprs)."""
+    scores = evaluator.model.score_candidates(evaluator.users, evaluator.items)
+    mask = evaluator.mask
+    users = evaluator.users[:, None].expand(mask.shape)[mask].cpu().numpy()
+    columns = (users, evaluator.items[mask].cpu().numpy(), evaluator.relevance[mask].cpu().numpy(),
+               scores[mask].cpu().numpy())
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["col_user", "col_item", "col_rating", "col_prediction"])
+        writer.writerows(zip(*(col.tolist() if col.dtype.kind in "iu" else [str(v) for v in col]
+                               for col in columns)))
 
 
 def append_csv_row(record, result_file):

@@ -13,7 +13,8 @@ counterparts of ``make_sequence_epoch_fn`` and
 (``PrefixEpochTrainer``, ``UserRowEpochTrainer`` and
 ``TripleEpochTrainer``, of ``make_prefix_epoch_fn``,
 ``make_userrow_epoch_fn`` and ``make_triple_epoch_fn``) and ``TrainEngine``
-(``build``, ``train``, ``save_checkpoint``). Models
+(``build``, ``train``, ``save_checkpoint``, ``resume_checkpoint``,
+``resume_training``, ``test``). Models
 with a row protocol and ``"sparse_optim": true`` train through the
 lazy-Adam trainer of ``core/sparse_optim.py``; with ``system.mesh`` through
 its row-sharded counterpart on a device mesh (``ShardedSparseEpochTrainer``),
@@ -26,18 +27,29 @@ consumes them through ``run_batches``, which also takes batches formed
 elsewhere; a step draws its dropout or latent noise from the same
 generator. Losses stay on the device; the host reads the mean once per
 epoch.
+
+A checkpoint holds the parameters and the optimizer state in the JAX
+package's layout, so either package resumes the other's ``last/``. ``rng``
+holds threefry-shaped key data (two uint32), which the JAX engine wraps as
+its key; the port's own generator state goes beside it as ``torch_rng``
+(the JAX package ignores the extra key), so a resumed port run repeats an
+uninterrupted one bit for bit. A checkpoint without ``torch_rng`` (the JAX
+package's) cannot continue its threefry stream in PyTorch: the generator is
+seeded with the key data read as one 64-bit number, ``k0 * 2**32 + k1``.
 """
 
+import hashlib
 import os
 import random
 import string
 import time
+from contextlib import contextmanager
 from datetime import datetime
 
 import numpy as np
 import torch
 
-from ..convert import nest_dotted, params_to_jax
+from ..convert import flatten_params, nest_dotted, params_to_jax
 from ..device import resolve_device
 from ..ops.sampling import (
     alias_negatives,
@@ -48,8 +60,8 @@ from ..ops.sampling import (
 )
 from ..utils.alias_table import AliasTable
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_USER_COL, MAX_N_UPDATE
-from .checkpoint import load_raw_checkpoint, save_checkpoint, save_metadata
-from .eval_engine import EvalBookkeeper, RankingEvaluator
+from .checkpoint import check_backend, load_metadata, load_raw_checkpoint, save_checkpoint, save_metadata
+from .eval_engine import EvalBookkeeper, RankingEvaluator, test_eval
 
 # Dense positive bitmasks are used for rejection sampling up to this many cells.
 _BITMASK_CELL_LIMIT = 64 * 1024 * 1024
@@ -507,14 +519,53 @@ def alias_tables(ids, size, device):
             torch.as_tensor(table.alias_arr, dtype=torch.long, device=device))
 
 
+def make_run_id(model_cfg):
+    """``<model>_<config_id>_<timestamp>_<6 letters>``, the JAX package's run id."""
+    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    tag = "".join(random.SystemRandom().choices(string.ascii_lowercase, k=6))
+    return f"{model_cfg.get('model', 'model')}_{model_cfg.get('config_id', 'default')}_{timestamp}_{tag}"
+
+
+def final_test(config, model, candidates_list, model_run_id, result_para=None, run_time=None):
+    """The final test of ``model`` over candidate copies: a
+    ``RankingEvaluator`` each, the mean row appended to
+    ``<root_dir>/<result_dir>/<result_file>`` and, with ``system.save_mode``
+    "per_user", the first copy's candidates written to
+    ``<root_dir>/<result_dir>/<model_run_id>_per_user.csv``. Returns the
+    mean row."""
+    sys_cfg = config.system
+    metrics = tuple(sys_cfg.get("metrics", ["ndcg", "precision", "recall", "map"]))
+    ks = tuple(sys_cfg.get("k", [5, 10, 20]))
+    result_dir = os.path.join(sys_cfg.get("root_dir", "."), sys_cfg.get("result_dir", "results/"))
+    evaluators = [RankingEvaluator(model, cand, metrics, ks) for cand in candidates_list]
+    mean_row, _ = test_eval(evaluators, result_file=os.path.join(result_dir, sys_cfg.get("result_file", "result.csv")),
+                            result_para=result_para or {}, run_time=run_time,
+                            save_mode=sys_cfg.get("save_mode", "average"),
+                            per_user_file=os.path.join(result_dir, f"{model_run_id}_per_user.csv"))
+    return mean_row
+
+
+def _key_data(generator_state):
+    """Two uint32 of threefry-shaped key data, derived from the generator's
+    state, for the checkpoint's ``rng``."""
+    return np.frombuffer(hashlib.blake2b(generator_state.tobytes(), digest_size=8).digest(), dtype=np.uint32).copy()
+
+
 class TrainEngine:
-    """Run lifecycle: build the trainer, train with early stop, checkpoint.
+    """Run lifecycle: build the trainer, train with early stop, checkpoint,
+    resume, test.
 
     ``system.mesh`` = {"data": N, "model": M} (or "auto": every device on
     "data") trains on a mesh of ``mesh_devices``: by default every CUDA device,
     ``device`` first, and too few raise. A mesh whose shards repeat a device
     exists only when ``mesh_devices`` names it so (``["cuda:0"] * 4``,
-    ``["cpu"] * 4``)."""
+    ``["cpu"] * 4``).
+
+    ``system.profile`` writes a ``torch.profiler`` trace (host, and the card
+    where the run is on one) of epochs 0-1 to ``<root_dir>/<run_dir>/
+    <model_run_id>/profile/trace.json``, the JAX trace's place.
+    ``system.log_to_file`` (JAX ``utils/logger.py``) raises: ROADMAP.md,
+    section 1 item 9."""
 
     def __init__(self, config, device, mesh_devices=None):
         self.config = config
@@ -523,16 +574,25 @@ class TrainEngine:
         self.mesh = None
         self.sharded = False
         sys_cfg, model_cfg = config.system, config.model
-        timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-        tag = "".join(random.SystemRandom().choices(string.ascii_lowercase, k=6))
-        self.model_run_id = (
-            f"{model_cfg.get('model', 'model')}_{model_cfg.get('config_id', 'default')}_{timestamp}_{tag}"
-        )
+        if sys_cfg.get("log_to_file", False):
+            raise NotImplementedError(
+                "system.log_to_file: the run logger (JAX utils/logger.py) is ROADMAP.md, section 1 item 9 "
+                "(experiment layer and CLIs)"
+            )
+        check_backend(sys_cfg.get("checkpoint_backend"))
+        self.model_run_id = make_run_id(model_cfg)
         root = sys_cfg.get("root_dir", ".")
         self.checkpoint_dir = os.path.join(root, sys_cfg.get("checkpoint_dir", "checkpoints/"), self.model_run_id)
+        self.profile_dir = (os.path.join(root, sys_cfg.get("run_dir", "runs/"), self.model_run_id, "profile")
+                            if sys_cfg.get("profile", False) else None)
         self.seed = int(sys_cfg.get("seed", 2020))
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.epoch_seconds = []
+        self.start_epoch = 0
+        self.run_time = None
+        # The final-epoch parameters while the model holds the best ones
+        # (``hold_best``); None while the model holds its own.
+        self.live_state = None
 
     def build(self, model, data, valid_candidates=None, test_candidates=None):
         """Initialise the model's weights and wire the epoch trainer and the
@@ -672,6 +732,7 @@ class TrainEngine:
         max_epoch = max_epoch or int(self.config.model.get("max_epoch", 100))
         save_last_every = int(self.config.system.get("save_last_every", 1))
         start = time.perf_counter()
+        self._restore_live()
         if self.epoch_fn is None:  # nothing to train (KNN): evaluate once, checkpoint epoch 0
             valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
             if valid_result:
@@ -680,8 +741,9 @@ class TrainEngine:
             self.run_time = time.perf_counter() - start
             return {"valid_metric": self.bookkeeper.best_valid_performance, "best_epoch": 0,
                     "model_save_dir": self.checkpoint_dir, "run_time": self.run_time}
-        epoch = -1
-        for epoch in range(max_epoch):
+        profiler = self._start_profile() if self.profile_dir else None
+        epoch = self.start_epoch - 1
+        for epoch in range(self.start_epoch, max_epoch):
             t0 = time.perf_counter()
             loss = float(self.epoch_fn.run(self.generator))  # the epoch's one host read
             self.epoch_seconds.append(time.perf_counter() - t0)
@@ -694,6 +756,9 @@ class TrainEngine:
                 self.save_checkpoint(epoch=epoch, kind="best")
             if save_last_every and (epoch + 1) % save_last_every == 0:
                 self.save_checkpoint(epoch=epoch, kind="last")
+            if profiler is not None and epoch == 1:
+                self._write_profile(profiler)
+                profiler = None
             if verbose:
                 key = self.bookkeeper.key
                 print(f"[Epoch {epoch}] loss={loss:.4f} valid_{key}={valid_result.get(key, float('nan')):.4f} "
@@ -702,8 +767,13 @@ class TrainEngine:
                 if verbose:
                     print(f"Early stop at epoch {epoch} (best epoch {self.bookkeeper.best_epoch})")
                 break
-        if epoch >= 0:
+        if profiler is not None:
+            self._write_profile(profiler)
+        if epoch >= self.start_epoch:
             self.save_checkpoint(epoch=epoch, kind="last")
+        # A finished train() uses up a resume point: a later train() on this
+        # engine runs from epoch 0, as in the JAX package.
+        self.start_epoch = 0
         self.run_time = time.perf_counter() - start
         return {
             "valid_metric": self.bookkeeper.best_valid_performance,
@@ -711,6 +781,20 @@ class TrainEngine:
             "model_save_dir": self.checkpoint_dir,
             "run_time": self.run_time,
         }
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _write_profile(self, profiler):
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+        return None
 
     def _make_mesh(self, mesh_cfg):
         """The mesh of ``system.mesh``, or None without one."""
@@ -783,20 +867,155 @@ class TrainEngine:
                 mu[name] = nu[name] = np.zeros(tuple(p.shape), np.float32)
         return {"0": {"count": np.int32(count), "mu": nest_dotted(mu), "nu": nest_dotted(nu)}, "1": {}}
 
+    def _restore_opt_state(self, tree):
+        """Load an optimizer state tree of ``_opt_state_tree``'s layout (the
+        JAX package's dense optax state) into the optimizer and, for the
+        lazy-Adam trainer, its table moments and step, in place. Adam's
+        count becomes every parameter's step; a count of 0 leaves the
+        optimizer fresh, as optax's initial state is."""
+        optimizer = self.config.model.get("optimizer", "adam")
+        head = tree["0"]
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        if optimizer == "rmsprop":
+            nu = flatten_params(head["nu"])
+            for group in self.optimizer.param_groups:
+                for p in group["params"]:
+                    self.optimizer.state[p] = {"nu": nu[names[id(p)]].to(p.device).reshape(p.shape)}
+            return
+        if optimizer != "adam":
+            return
+        count = int(head["count"])
+        mu, nu = flatten_params(head["mu"]), flatten_params(head["nu"])
+        if self.sparse_optim:
+            self.epoch_fn.state["step"] = count
+            for name, (m, v) in self.epoch_fn.state["moments"].items():
+                m.copy_(mu[name])
+                v.copy_(nu[name])
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if not count:
+                    self.optimizer.state.pop(p, None)
+                    continue
+                name = names[id(p)]
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": mu[name].to(p.device).reshape(p.shape),
+                    "exp_avg_sq": nu[name].to(p.device).reshape(p.shape),
+                }
+
+    def resume_checkpoint(self, ckpt_dir=None):
+        """Restore the parameters, the optimizer state and the generator from
+        a checkpoint directory (this run's best one by default), the port's
+        or the JAX package's. On a mesh it raises: sharded resume is
+        ROADMAP.md, section 1 item 8."""
+        if self.sharded:
+            raise NotImplementedError(
+                "resume on a mesh: sharded resume (JAX _replace_on_mesh) is ROADMAP.md, section 1 item 8"
+            )
+        ckpt_dir = ckpt_dir or self.checkpoint_dir
+        meta = load_metadata(ckpt_dir)
+        if (meta.get("n_users"), meta.get("n_items")) != (self.data.n_users, self.data.n_items):
+            raise ValueError(f"the checkpoint at {ckpt_dir} holds {meta.get('n_users')} users x "
+                             f"{meta.get('n_items')} items, the data {self.data.n_users} x {self.data.n_items}")
+        raw = load_raw_checkpoint(ckpt_dir, backend=self.config.system.get("checkpoint_backend"))
+        with torch.no_grad():
+            self.model.load_trimmed(flatten_params(raw["params"]))
+            self._restore_opt_state(raw["opt_state"])
+        state = raw.get("torch_rng")
+        if state is not None and np.asarray(state).size == self.generator.get_state().numel():
+            self.generator.set_state(torch.as_tensor(np.asarray(state, dtype=np.uint8).copy()))
+        else:  # the JAX package's threefry key, or a generator of another device type
+            key = np.asarray(raw["rng"], dtype=np.uint32).reshape(-1)
+            self.generator.manual_seed((int(key[0]) << 32) | int(key[-1]))
+        self.live_state = None
+        return self.model
+
+    def resume_training(self, ckpt_dir=None):
+        """Restore the full state and the early-stop bookkeeping from
+        ``<ckpt_dir>/last`` where it exists, else from ``ckpt_dir`` (this
+        run's checkpoint directory by default); ``train()`` then runs from
+        the epoch after the restored one. Returns that epoch."""
+        ckpt_dir = ckpt_dir or self.checkpoint_dir
+        last_dir = os.path.join(ckpt_dir, "last")
+        if os.path.exists(last_dir):
+            ckpt_dir = last_dir
+        self.resume_checkpoint(ckpt_dir)
+        meta = load_metadata(ckpt_dir)
+        self.bookkeeper.best_valid_performance = float(meta["best_valid_performance"])
+        self.bookkeeper.best_epoch = int(meta["best_epoch"])
+        self.bookkeeper.n_no_update = int(meta.get("n_no_update", 0))
+        self.start_epoch = int(meta.get("epoch", meta["best_epoch"])) + 1
+        return self.start_epoch
+
+    # -- serving parameters ---------------------------------------------------------
+
+    def _clone_state(self):
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def hold_best(self):
+        """Load the best checkpoint into the model and keep the final-epoch
+        parameters aside (``live_state``), once the best exists."""
+        if self.live_state is None and self.has_checkpoint("best"):
+            self.live_state = self._clone_state()
+            self._load_best()
+
+    def _load_best(self):
+        with torch.no_grad():
+            self.model.load_trimmed(flatten_params(self.load_params()))
+
+    def _restore_live(self):
+        if self.live_state is not None:
+            self.model.load_state_dict(self.live_state)
+            self.live_state = None
+
+    @contextmanager
+    def serving(self, use_best=True):
+        """Inside the block the model holds the best checkpoint's parameters
+        (``use_best`` and one exists) or the final-epoch ones; after it,
+        what it held before. Serving never changes the engine's state, so it
+        is call-order independent, as in the JAX package."""
+        want_best = use_best and self.has_checkpoint("best")
+        if want_best == (self.live_state is not None):
+            yield self.model
+            return
+        saved = self._clone_state()
+        if want_best:
+            self._load_best()
+        else:
+            self.model.load_state_dict(self.live_state)
+        try:
+            yield self.model
+        finally:
+            self.model.load_state_dict(saved)
+
+    def test(self, test_candidates_list, result_para=None, use_best=True, model=None):
+        """Evaluate every test candidate copy with the best checkpoint (or,
+        ``use_best=False``, the final-epoch parameters); append the mean row
+        to the result CSV and, with ``system.save_mode`` "per_user", write
+        the first copy's candidates to ``<result_dir>/<model_run_id>
+        _per_user.csv``. ``model`` overrides the scoring model (a sequence
+        recommender's train+valid context). Returns the mean row."""
+        with self.serving(use_best):
+            return final_test(self.config, model or self.model, test_candidates_list, self.model_run_id,
+                              result_para, self.run_time)
+
     def save_checkpoint(self, epoch=None, kind="best"):
         """``kind="best"`` writes ``<checkpoint_dir>/`` (the best-valid model,
         what serving restores); ``kind="last"`` writes ``<checkpoint_dir>/last/``.
         The file holds ``params`` in the JAX layout, the optimizer state
-        (``_opt_state_tree``) and the port's generator state as ``rng``."""
+        (``_opt_state_tree``), ``rng`` (key data) and ``torch_rng`` (the
+        generator's state)."""
         ckpt_dir = self.checkpoint_dir if kind == "best" else os.path.join(self.checkpoint_dir, "last")
         # A sharded run writes its row tables padded to the model axis, as the
         # JAX package does.
         params = self.epoch_fn.padded_params() if self.sharded else self.model.state_dict()
+        generator_state = self.generator.get_state().numpy()
         save_checkpoint(ckpt_dir, {
             "params": params_to_jax(params),
             "opt_state": self._opt_state_tree(),
-            "rng": self.generator.get_state().numpy(),
-        })
+            "rng": _key_data(generator_state),
+            "torch_rng": generator_state,
+        }, backend=self.config.system.get("checkpoint_backend", "flax"))
         save_metadata(ckpt_dir, {
             "kind": kind,
             "best_valid_performance": self.bookkeeper.best_valid_performance,
@@ -815,4 +1034,5 @@ class TrainEngine:
 
     def load_params(self, ckpt_dir=None):
         """The params tree of a checkpoint (the best one by default)."""
-        return load_raw_checkpoint(ckpt_dir or self.checkpoint_dir)["params"]
+        return load_raw_checkpoint(ckpt_dir or self.checkpoint_dir,
+                                   backend=self.config.system.get("checkpoint_backend"))["params"]

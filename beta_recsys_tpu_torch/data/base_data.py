@@ -4,8 +4,14 @@ Counterpart of ``BaseData`` in ``beta_recsys_tpu/data/base_data.py``, on
 numpy + scipy frames (dicts of columns, see ``datasets/split_io.py``) in
 place of pandas. It keeps the reference's semantics exactly:
 
-- valid/test rows whose user or item never occurs in train are dropped;
-- ratings ``> bin_thld`` become 1, the others keep their value;
+- with ``intersect`` (the default), valid/test rows whose user or item
+  never occurs in train are dropped; without it they stay, and their ids,
+  which have no dense id, become NaN in float64 id columns, as pandas'
+  ``map`` leaves them;
+- with ``binarize`` (the default), ratings ``> bin_thld`` become 1, the
+  others keep their value;
+- with ``normalize``, ratings (after binarizing) are divided by the largest
+  train rating;
 - users and items get dense ids in order of FIRST APPEARANCE in train (as
   ``pd.Series.unique`` gives them), not in sorted order.
 
@@ -59,15 +65,22 @@ def first_appearance_unique(values):
 
 
 def _dense_ids(values, pool):
-    """Position of each value in ``pool``; every value must be in it."""
+    """Position of each value in ``pool`` as int64; where some value is not
+    in it, float64 positions with NaN there (pandas' ``map`` of a missing
+    key)."""
     order = np.argsort(pool, kind="stable")
-    return order[np.searchsorted(pool, values, sorter=order)].astype(np.int64)
+    pos = np.searchsorted(pool, values, sorter=order)
+    found = order[np.minimum(pos, len(pool) - 1)] if len(pool) else np.zeros(len(values), np.int64)
+    seen = (pool[found] == values) if len(pool) else np.zeros(len(values), bool)
+    if seen.all():
+        return found.astype(np.int64)
+    return np.where(seen, found, np.nan)
 
 
 class BaseData:
     """A split re-indexed to dense ids, with the arrays scoring needs."""
 
-    def __init__(self, split_dataset, bin_thld=0.0):
+    def __init__(self, split_dataset, intersect=True, binarize=True, bin_thld=0.0, normalize=False):
         train, valid, test = split_dataset
         valid = [valid] if isinstance(valid, dict) else list(valid)
         test = [test] if isinstance(test, dict) else list(test)
@@ -75,10 +88,25 @@ class BaseData:
         self.item_pool = first_appearance_unique(train[DEFAULT_ITEM_COL])
         self.n_users = len(self.user_pool)
         self.n_items = len(self.item_pool)
+        if intersect:
+            valid, test = [self._intersect(f) for f in valid], [self._intersect(f) for f in test]
         # Copies throughout: the caller's frames are never modified.
-        self.train = self._prepare(train, bin_thld)
-        self.valid = [self._prepare(self._intersect(f), bin_thld) for f in valid]
-        self.test = [self._prepare(self._intersect(f), bin_thld) for f in test]
+        frames = [dict(f) for f in (train, *valid, *test)]
+        for f in frames:
+            f[DEFAULT_RATING_COL] = np.array(f[DEFAULT_RATING_COL])
+            if binarize:
+                f[DEFAULT_RATING_COL][f[DEFAULT_RATING_COL] > bin_thld] = 1.0
+        if normalize:
+            max_rating = frames[0][DEFAULT_RATING_COL].max()
+            assert max_rating > 0, "All ratings may be <= 0."
+            for f in frames:
+                f[DEFAULT_RATING_COL] = f[DEFAULT_RATING_COL] / max_rating
+        for f in frames:
+            f[DEFAULT_USER_COL] = _dense_ids(f[DEFAULT_USER_COL], self.user_pool)
+            f[DEFAULT_ITEM_COL] = _dense_ids(f[DEFAULT_ITEM_COL], self.item_pool)
+        self.train = frames[0]
+        self.valid = frames[1:1 + len(valid)]
+        self.test = frames[1 + len(valid):]
         self._pos_csr_cache = None
         self._graph_embeddings_cache = {}
 
@@ -88,16 +116,6 @@ class BaseData:
             frame[DEFAULT_ITEM_COL], self.item_pool
         )
         return {col: values[keep] for col, values in frame.items()}
-
-    def _prepare(self, frame, bin_thld):
-        """Binarize ratings above the threshold and map ids to dense ids."""
-        out = dict(frame)
-        ratings = np.array(frame[DEFAULT_RATING_COL])
-        ratings[ratings > bin_thld] = 1.0
-        out[DEFAULT_RATING_COL] = ratings
-        out[DEFAULT_USER_COL] = _dense_ids(frame[DEFAULT_USER_COL], self.user_pool)
-        out[DEFAULT_ITEM_COL] = _dense_ids(frame[DEFAULT_ITEM_COL], self.item_pool)
-        return out
 
     def train_arrays(self):
         """Train interactions as flat arrays, for the trainers."""

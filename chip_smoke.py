@@ -43,11 +43,11 @@ Phases, each printed with the seconds elapsed:
  12. on 4 cards or more (with --chips 4): `nvidia-smi topo -m`, peer access,
      and phase 11 across cuda:0-3 against torch.cuda.nccl.all_gather;
  13. the slice's main path: MatrixFactorization(cfg, mesh_devices=["cuda:0"]
-     * 4).train(data) on a (1, 4) mesh, lazy Adam, ring lookup, 2 epochs
+     * 4).train(data) on a (1, 4) mesh, lazy Adam, ring lookup, 1 epoch
      (ONE_CARD_MESH_EPOCHS), bit-equal to the one-device lazy-Adam trainer,
      exact ring launches, no bucket overflow; then test() and recommend()
      (no pad item); on 4 cards again on cuda:0-3, 3 epochs;
- 14. 2 epochs on a (2, 2) mesh through run_batches against the one-device
+ 14. 1 epoch on a (2, 2) mesh through run_batches against the one-device
      trainer, within MESH_TOL (on 4 cards again on cuda:0-3, 3 epochs);
  15. 20 steps on a (1, 4) mesh of cuda:0 with 1,000,000-row tables and
      batches of 16,384: time a step and the ring's share of device time;
@@ -62,8 +62,8 @@ Phases, each printed with the seconds elapsed:
      split through XRecommender(cfg).train(data), seed 0, capped at
      NCF_EPOCHS: best valid and test ndcg@10 inside the JAX package's
      ten-seed bands at that cap,
-     NCF's first 3 epochs twice, bit for bit; examples/s and a profiled
-     window each (an epoch's batch forming and 50 steps);
+     NCF's first 2 epochs twice, bit for bit; examples/s and a profiled
+     window each (an epoch's batch forming and 20 steps);
  19. NCF warm-started from phase 18's MLP and a GMF trained as in phase 18
      at NCF's width (emb 8; the shipped GMF is 64 wide) for 10 epochs, for
      5 epochs (neither holds a band): NCF starts from
@@ -78,11 +78,11 @@ Phases, each printed with the seconds elapsed:
  21. train LightGCN at its shipped config (edge keep 0.6, batch 1,024, Adam
      at lr 2.5e-4) through LightGCN(cfg).train(data), seed 0, to early stop:
      best valid and test ndcg@10 inside the JAX package's ten-seed bands;
-     its first 3 epochs twice, bit for bit; positives/s;
+     its first 2 epochs twice, bit for bit; positives/s;
  22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
      Phases 20-22 launch none of the kernels and are profiled
      (``--profile graph-models``: a test() and a recommend() of each
-     checkpoint; an epoch's batch forming and 20 steps of each model after
+     checkpoint; an epoch's batch forming and 10 steps of each model after
      5 to warm up), printing a WARNING where the profiler recorded no CUDA
      events;
  23. serve the JAX-trained seed-0 UltraGCN checkpoint: load -> test() ->
@@ -94,17 +94,17 @@ Phases, each printed with the seconds elapsed:
      (16 candidates mixed into one negative, edge and message dropout, 5
      epochs) at their shipped configs through XRecommender(cfg).train(data),
      seed 0: best valid and test ndcg@10 inside the JAX package's ten-seed
-     bands at the same caps; UltraGCN's first 3 epochs twice, bit for bit;
+     bands at the same caps; UltraGCN's first 2 epochs twice, bit for bit;
  25. train PairwiseGMF (5 epochs), then CMN (rmsprop, 3 epochs)
      warm-started from its memories, at their shipped configs: both inside
      the JAX bands at those caps (each JAX seed's CMN starts from that
      seed's PairwiseGMF); CMN starts from the memories bit for bit, its
      first 5 steps equal the same steps through the port on the CPU (1e-5:
-     the loss, every parameter, rmsprop's nu), its first 2 epochs twice bit
+     the loss, every parameter, rmsprop's nu), its first epoch twice bit
      for bit, and the peak device memory of its test() (scored in blocks of
      pairs). Phases 23-25 launch none of the kernels and are profiled
      (``--profile capped-models``: UltraGCN's test() and
-     recommend(), an epoch's batch forming and 20 steps of each model after
+     recommend(), an epoch's batch forming and 10 steps of each model after
      5 to warm up, and CMN's test()); positives/s of every training;
  26. SimGCL and SGL (both_side InfoNCE over two views of edge dropout a
      step, drawn on the device), 27. BUIR (online and target encoders, the
@@ -124,7 +124,7 @@ Phases, each printed with the seconds elapsed:
      bit; LCFN's P and Q from a second eigendecomposition on a fresh data
      object bit for bit. Phases 26-27 launch none of the kernels and are
      profiled (``--profile ssl-models``: an epoch's
-     batch forming and 20 steps of each model after 5 to warm up);
+     batch forming and 10 steps of each model after 5 to warm up);
      positives/s of every training;
  28. TiSASRec at its shipped config (emb 64, 2 blocks, maxlen 50, time_span
      256, dropout 0.2, batch 128) through TiSASRec(cfg).train(data) on the
@@ -139,12 +139,12 @@ Phases, each printed with the seconds elapsed:
      1e-6 relative to max(1, |score|), the top-10 lists); sequences/s,
      test()'s peak device memory;
  29. NARM at its shipped config (emb 50, hidden 100, maxlen 19, batch 512)
-     the same way without the steps: its band held, its first 2 epochs
+     the same way without the steps: its band held, its first epoch
      twice bit for bit; examples/s;
  30. serve the JAX-trained seed-0 VAECF checkpoint: load -> test() ->
      predict() -> recommend(k=10), test() reproducing the JAX package's
      metrics to 1e-4 and the port's on the CPU; then VAECF (z 10, encoder
-     [20], mult) trained to early stop inside its band, its first 3 epochs
+     [20], mult) trained to early stop inside its band, its first 2 epochs
      twice bit for bit;
  31. serve the JAX-trained seed-0 Triple2vec checkpoint on the structured
      split with synthetic baskets (five of a user's train interactions a
@@ -168,13 +168,41 @@ Phases, each printed with the seconds elapsed:
      against the CPU's).
      Phases 28-33 launch none of the kernels and are profiled
      (``--profile seq-models grocery-models``: an epoch's batch forming
-     and 20 steps of each model after 5 to warm up, 5 steps for phases
+     and 10 steps of each model after 5 to warm up, 5 steps for phases
      32-33; the Triple2vec checkpoint's test() and recommend(), each KNN's
      test()); triples/s.
      The profiles of phases 20-33 run in one child process after phase 33
      (``--profile graph-models capped-models ssl-models seq-models
      grocery-models``);
- 34. a JSON line of every kernel with its launches on each path, counted
+ 34. the serving surface on the JAX-trained MF, LightGCN and SASRec
+     checkpoints: recommend(k=10) through each route it takes (MF and
+     LightGCN: the streaming route with train items excluded, as the JAX
+     package routes this split, and the fast route in modes exact and
+     approx with float32 and bfloat16 scores; SASRec: score_all through the
+     flash forward kernel) against the same checkpoint served by the port
+     on the CPU (float32: equal ids, scores to 1e-6 relative to max(1,
+     |score|); bfloat16: the overlap of the ids, reported);
+     FullCatalogEvaluator (and TopKRetrievalEvaluator, exact and approx,
+     for MF and LightGCN) giving the JAX package's metrics to 1e-6 and
+     agreeing with each other; export_embeddings() round-tripped and
+     against the CPU's; use_best True, False, True on a recommender whose
+     engine holds the JAX MF run's last/, serving best, final, best; and
+     test() with save_mode "per_user" writing the CPU's file; users/s of
+     each route and evaluator;
+ 35. retrieval at bench.py's bench_retrieval_scale shape (10,240 users x
+     162,000 items, MF tables from the initializer, k 10, 20 excluded ids a
+     user): exact float32 retrieval_topk gives a full sort's ids on the CPU
+     for the first 256 users, streaming_topk (item_block 8192) exact's ids,
+     the bfloat16 scores a top-10 recall >= 0.95 against exact; users/s of
+     each route beside its bound, the peak device memory, and the top-k
+     route against a full stable sort;
+ 36. full-state resume: MF with lazy Adam (fused_rowadam, one launch a
+     step) and with the dense trainer, 2 epochs and then resume_training
+     from last/ for 2 more, equal to 4 straight epochs bit for bit
+     (parameters, moments, step, generator, bookkeeper); the JAX MF run's
+     last/ (epoch 33, 20 epochs without a gain) resumed with the file's
+     state, stopping after one epoch as the JAX engine does;
+ 37. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
@@ -209,7 +237,9 @@ from beta_recsys_tpu_torch.convert import (  # noqa: E402
     nest_dotted,
     sasrec_params_from_jax,
 )
-from beta_recsys_tpu_torch.core.checkpoint import load_raw_checkpoint  # noqa: E402
+from beta_recsys_tpu_torch.core.checkpoint import load_metadata, load_raw_checkpoint  # noqa: E402
+from beta_recsys_tpu_torch.core.eval_engine import FullCatalogEvaluator, TopKRetrievalEvaluator  # noqa: E402
+from beta_recsys_tpu_torch.core.recommender import recommend_route  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
     ShardedSparseEpochTrainer,
     SparseEpochTrainer,
@@ -228,6 +258,13 @@ from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E40
 from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets  # noqa: E402
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
 from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
+from beta_recsys_tpu_torch.ops.topk import (  # noqa: E402
+    NEG_INF,
+    exclusion_lists,
+    retrieval_topk,
+    streaming_topk,
+    topk_lowest_index,
+)
 from beta_recsys_tpu_torch.ops.kernels import _build  # noqa: E402
 from beta_recsys_tpu_torch.models import build_model  # noqa: E402
 from beta_recsys_tpu_torch.models import sgl as sgl_model  # noqa: E402
@@ -378,9 +415,9 @@ MESH_CAPACITY_FACTOR = 4.0
 # CPU: 1.2e-5, 1.5e-4, 9.8e-4 for parameters, 1.0e-5, 1.3e-4, 1.2e-3 for
 # moments). Each epoch's loss to 1e-5 relative.
 MESH_TOL = (1e-4, 1e-3, 1e-2)
-ONE_CARD_MESH_EPOCHS = 2  # phases 13-14 on cuda:0 (the 4-card call's run 3 epochs)
+ONE_CARD_MESH_EPOCHS = 1  # phases 13-14 on cuda:0 (the 4-card call's run 3 epochs)
 PROFILED_STEPS = 3  # sharded steps under torch.profiler (~2,500 device activities each)
-PROFILED_WINDOW = 50  # one-device training steps under torch.profiler
+PROFILED_WINDOW = 20  # one-device training steps under torch.profiler
 # The NCF family: each model's recommender, shipped config and JAX-trained
 # seed-0 checkpoint.
 NCF_FAMILY = {
@@ -435,7 +472,7 @@ GRAPH_BANDS = {
 }
 SPARSE_ROUTE_TOL = 1e-5  # test() through the CSR route against the dense route's
 PREDICT_TOL = 1e-6  # served scores on the card against the port's on the CPU
-REPEAT_EPOCHS = 3  # NCF's, LightGCN's and UltraGCN's epochs trained twice, bit for bit
+REPEAT_EPOCHS = 2  # NCF's, LightGCN's and UltraGCN's epochs trained twice, bit for bit
 # The multineg models and the memory network: each recommender, shipped
 # config and the epochs its training runs (the cap its JAX band is read at).
 CAPPED_FAMILY = {
@@ -464,7 +501,7 @@ CAPPED_BANDS = {
     "CMN": {"valid": (0.13177550993859768, 0.05672324844704675),
             "test": (0.11733343806117773, 0.04854873012141583)},
 }
-CMN_REPEAT_EPOCHS = 2  # CMN's epochs trained twice, bit for bit
+CMN_REPEAT_EPOCHS = 1  # CMN's epochs trained twice, bit for bit
 # CMN's first steps at the shipped width on the card against the same steps
 # through the port on the CPU (which tests/test_torch_train_multineg.py holds
 # to the JAX package at that width): the band above is too wide to fail an
@@ -537,7 +574,7 @@ SEQ_BANDS = {
     "VAECF": {"valid": (0.17106172442436218, 0.008142394129761463),
               "test": (0.1476400688290596, 0.007428062552732322)},
 }
-SEQ_REPEAT_EPOCHS = {"TiSASRec": 2, "NARM": 2, "VAECF": 3}  # each model's epochs trained twice, bit for bit
+SEQ_REPEAT_EPOCHS = {"TiSASRec": 2, "NARM": 1, "VAECF": 2}  # each model's epochs trained twice, bit for bit
 STEP_UNITS = {"sequence_time": "sequences", "prefix": "examples", "userrow": "user rows",
               "triple": "triples"}  # a step's rows (else positives)
 # TiSASRec's band cannot fail an untrained model (its best epoch is 0 in
@@ -592,6 +629,56 @@ EXPECTED_KNN_METRICS = {
                 "precision@10": 0.07179215550422668, "map@10": 0.3105093836784363},
 }
 SERVING_TOL = 1e-6
+# Phases 34-36: the serving surface on the JAX checkpoints, retrieval at
+# bench_retrieval_scale's shape and full-state resume. The JAX package's
+# FullCatalogEvaluator and TopKRetrievalEvaluator ("exact") metrics of the
+# MF, LightGCN and SASRec checkpoints on the structured split (the users
+# with a test positive, train items excluded):
+# `JAX_PLATFORMS=cpu python port_tools/jax_full_catalog_metrics.py`. The card
+# must give them to SERVING_TOL.
+EXPECTED_FULL_CATALOG_METRICS = {
+    "MF": {
+        "full_catalog": {"map@10": 0.022233164070266934, "map@20": 0.026794504386117073,
+            "map@5": 0.01569459091947036, "ndcg@10": 0.03626077678271847, "ndcg@20": 0.053398674391486614,
+            "ndcg@5": 0.019851945490751133, "precision@10": 0.008483562590840765,
+            "precision@20": 0.0076882295618633705, "precision@5": 0.006574761197524005,
+            "recall@10": 0.08483563096500531, "recall@20": 0.1537645811240721, "recall@5": 0.032873806998939555},
+        "topk_retrieval": {"map@10": 0.022233163325422075, "map@20": 0.026794502351769684,
+            "map@5": 0.015694591728525983, "ndcg@10": 0.036260779765719356, "ndcg@20": 0.053398678039836854,
+            "ndcg@5": 0.019851944200857393, "precision@10": 0.008483563096500531,
+            "precision@20": 0.0076882295618633705, "precision@5": 0.00657476170318377,
+            "recall@10": 0.08483563096500531, "recall@20": 0.1537645811240721, "recall@5": 0.032873806998939555},
+    },
+    "LightGCN": {
+        "full_catalog": {"map@10": 0.02512414028131317, "map@20": 0.029653326704039428,
+            "map@5": 0.01986567718732395, "ndcg@10": 0.038041366625691776, "ndcg@20": 0.0551520678296701,
+            "ndcg@5": 0.025133428239872954, "precision@10": 0.008165429278117855,
+            "precision@20": 0.007529162147012268, "precision@5": 0.008271473210032394,
+            "recall@10": 0.0816542948038176, "recall@20": 0.15058324496288442, "recall@5": 0.041357370095440084},
+        "topk_retrieval": {"map@10": 0.02512413944015217, "map@20": 0.029653329025885158,
+            "map@5": 0.01986567691763874, "ndcg@10": 0.03804136402547644, "ndcg@20": 0.05515205323801627,
+            "ndcg@5": 0.02513342539109289, "precision@10": 0.008165429278117855,
+            "precision@20": 0.007529162652672033, "precision@5": 0.008271474221351922,
+            "recall@10": 0.0816542948038176, "recall@20": 0.15058324496288442, "recall@5": 0.041357370095440084},
+    },
+    "SASRec": {
+        "full_catalog": {"map@10": 0.07244483891120013, "map@20": 0.08002185518137345,
+            "map@5": 0.06173558806563991, "ndcg@10": 0.10322858015527654, "ndcg@20": 0.1311964518444915,
+            "ndcg@5": 0.07760667042413673, "precision@10": 0.020466597183890965,
+            "precision@20": 0.015800638896663013, "precision@5": 0.025238603448311574,
+            "recall@10": 0.2046659597030753, "recall@20": 0.31601272534464475, "recall@5": 0.1261930010604454},
+    },
+}
+SERVING_FAMILY = {"MF": (MatrixFactorization, MF_CHECKPOINT),
+                  "LightGCN": (LightGCN, os.path.join(REPO, "parity_runs/checkpoints", GRAPH_FAMILY["LightGCN"][2])),
+                  "SASRec": (SASRec, CHECKPOINT)}
+# bench.py's bench_retrieval_scale: 10,240 users x 162,000 items, MF tables of
+# emb 64 (66 wide with the biases), k 10, 20 excluded ids a user.
+RETRIEVAL_SCALE = {"n_users": 10_240, "n_items": 162_000, "emb_dim": 64, "k": 10, "t": 20}
+RETRIEVAL_CPU_USERS = 256  # users whose exact ids are held against a full sort on the CPU
+RETRIEVAL_ITEM_BLOCK = 8192
+RECALL_TARGET = 0.95  # the JAX package's default recall_target for the bf16 scores
+RESUME_EPOCHS = 2  # phase 36: this many epochs, resumed for as many more, against twice as many straight
 
 T0 = time.perf_counter()
 
@@ -1876,14 +1963,19 @@ def zero_kernel_counts():
     fused_rowadam.launches = ring_allgather.launches = 0
 
 
+def kernel_counts():
+    """Each kernel's launches since the counts were last set to 0."""
+    return {"flash_causal_attention_fwd": flash_causal_attention.launches,
+            "flash_causal_attention_bwd": flash_causal_attention_bwd.launches,
+            "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches}
+
+
 def check_no_kernel(path):
     """The NCF family's and the graph models' paths run no hand-written
     kernel: the JAX package trains and serves them through XLA code alone.
     Returns each kernel's count (all 0)."""
     torch.cuda.synchronize()
-    counts = {"flash_causal_attention_fwd": flash_causal_attention.launches,
-              "flash_causal_attention_bwd": flash_causal_attention_bwd.launches,
-              "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches}
+    counts = kernel_counts()
     if any(counts.values()):
         fail(f"{path}: the path launched kernels {counts}, expected none")
     return counts
@@ -2864,6 +2956,498 @@ def grocery_phases(seed, root_dir):
     return counts
 
 
+# -- the serving surface, retrieval at scale and resume (phases 34-36) ------------
+
+
+def synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, device):
+    """(result, seconds) of one call of ``fn`` after a first, untimed one."""
+    fn()
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def eval_relevance(data):
+    """(users, relevance CSR) of the first test copy: the users with a
+    positive (rating >= 1), sorted, and those positives as ones, as
+    port_tools/jax_full_catalog_metrics.py builds them."""
+    import scipy.sparse as sp
+
+    test = data.test[0]
+    pos = test[DEFAULT_RATING_COL] >= 1
+    u, i = test[DEFAULT_USER_COL][pos].astype(np.int64), test[DEFAULT_ITEM_COL][pos].astype(np.int64)
+    return np.unique(u), sp.csr_matrix((np.ones(len(u), np.float32), (u, i)), shape=(data.n_users, data.n_items))
+
+
+def same_ids(phase, what, got, want, score_of, limit=NEAR_TIE):
+    """Top-k id lists ``got`` and ``want`` (rows of a (users, k) array) are
+    equal, except at ranks where the two items' scores (``score_of(rows,
+    ids)``, one score matrix for both) lie within ``limit``: float32
+    rounding may order a tie either way. Returns the rows that differ."""
+    rows = np.nonzero((got != want).any(axis=1))[0]
+    if len(rows):
+        gap = np.abs(score_of(rows, got[rows]) - score_of(rows, want[rows]))
+        if gap.max() > limit:
+            r = int(rows[np.argmax(gap.max(axis=1))])
+            fail(f"{phase}: {what}: user {r}'s ids {got[r]} differ from {want[r]} beyond a tie "
+                 f"(score gap {gap.max():.3g} > {limit})")
+    return len(rows)
+
+
+def serve_routes(phase, rec, cpu, device, k=10):
+    """recommend(k) through each route this model takes, on ``device``
+    against the same checkpoint served by the port on the CPU: the default
+    (train items excluded), and for a factorized model the fast route in
+    both modes with float32 and bfloat16 scores. Float32: the CPU's ids,
+    scores to PREDICT_TOL relative to max(1, |score|); bfloat16: the
+    overlap with the CPU's ids, reported."""
+    cases = [{"exclude_train": True}]
+    if rec.model.user_item_embeddings() is not None:
+        cases += [{"exclude_train": False, "mode": mode, "score_dtype": dtype}
+                  for mode in ("exact", "approx") for dtype in ("float32", "bfloat16")]
+    n = rec.data.n_users
+    parts = []
+    for kw in cases:
+        route = recommend_route(rec.model.user_item_embeddings() is not None, k,
+                                exclusion_lists(rec.data.user_item_csr()) if kw["exclude_train"] else None)
+        got, secs = timed(lambda: rec.recommend(k=k, **kw), device)
+        if kw["exclude_train"]:
+            check_recommendations(got, rec.data, k, n)
+        elif not np.isfinite(got[DEFAULT_PREDICTION_COL]).all():
+            fail(f"{phase}: recommend({kw}) returned non-finite scores")
+        want = cpu.recommend(k=k, **kw)
+        a, b = got[DEFAULT_ITEM_COL].reshape(n, k), want[DEFAULT_ITEM_COL].reshape(n, k)
+        label = f"{route} {kw.get('mode', 'exact')} {kw.get('score_dtype') or 'float32'}"
+        if kw.get("score_dtype") == "bfloat16":
+            overlap = np.mean([len(set(x) & set(y)) / k for x, y in zip(a, b)])
+            parts.append(f"{label} {n / secs:.1f} users/s, ids overlap the CPU's {overlap:.4f}")
+            continue
+        err = float((np.abs(got[DEFAULT_PREDICTION_COL] - want[DEFAULT_PREDICTION_COL])
+                     / np.maximum(1.0, np.abs(want[DEFAULT_PREDICTION_COL]))).max())
+        if not np.array_equal(a, b) or err > PREDICT_TOL:
+            fail(f"{phase}: recommend({kw}) on the {route} route differs from the CPU's: "
+                 f"{int((a != b).any(axis=1).sum())} rows of ids, scores by {err} (limit {PREDICT_TOL})")
+        parts.append(f"{label} {n / secs:.1f} users/s, the CPU's ids, scores within {err:.3g}")
+    log(phase, f"recommend(k={k}) over {n} users: " + "; ".join(parts))
+    return 2 * len(cases)  # recommend() calls on the device
+
+
+def evaluators_against_jax(phase, name, rec, device):
+    """FullCatalogEvaluator (and, for a factorized model, the exact and
+    approx TopKRetrievalEvaluator) of the served model on ``device``: the
+    JAX package's metrics to SERVING_TOL, and the two evaluators' metrics
+    within SERVING_TOL of each other. Returns the evaluate() calls."""
+    users, rel = eval_relevance(rec.data)
+    train = rec.data.user_item_csr()
+    model = rec.test_model()
+    want = EXPECTED_FULL_CATALOG_METRICS[name]
+    full, secs = timed(FullCatalogEvaluator(model, users, rel, train).evaluate, device)
+    text = [f"FullCatalogEvaluator {held_to(phase, full, want['full_catalog'], 'FullCatalogEvaluator')}, "
+            f"{len(users) / secs:.1f} users/s"]
+    calls = 2
+    if "topk_retrieval" in want:
+        topk = TopKRetrievalEvaluator(model, users, rel, train)
+        got, secs = timed(topk.evaluate, device)
+        text.append(f"TopKRetrievalEvaluator ({'fast' if topk.use_fast else 'streaming'} route) "
+                    f"{held_to(phase, got, want['topk_retrieval'], 'TopKRetrievalEvaluator')}, "
+                    f"{len(users) / secs:.1f} users/s")
+        gap = max(abs(got[key] - full[key]) for key in full)
+        if gap > SERVING_TOL:
+            fail(f"{phase}: the two evaluators' metrics differ by {gap} (limit {SERVING_TOL})")
+        approx = TopKRetrievalEvaluator(model, users, rel, train, mode="approx").evaluate()
+        text.append(f"the two agree within {gap:.3g}; mode approx ndcg@10 {approx['ndcg@10']:.6f}")
+    log(phase, "; ".join(text))
+    return calls
+
+
+def exported_tables(phase, rec, cpu, root_dir):
+    """export_embeddings() written, read back bit-equal to the served
+    tables and within PREDICT_TOL (relative to max(1, |x|)) of the CPU's."""
+    path = rec.export_embeddings(os.path.join(root_dir, f"{phase.replace('/', '-')}.npz"))
+    want = np.load(cpu.export_embeddings(os.path.join(root_dir, f"{phase.replace('/', '-')}-cpu.npz")))
+    with np.load(path) as z:
+        u, i = (x.detach().cpu().numpy() for x in rec.model.user_item_embeddings_trimmed())
+        if not (np.array_equal(z["user_emb"], u) and np.array_equal(z["item_emb"], i)):
+            fail(f"{phase}: export_embeddings() did not round-trip the served tables")
+        err = max(float((np.abs(z[key] - want[key]) / np.maximum(1.0, np.abs(want[key]))).max())
+                  for key in ("user_emb", "item_emb"))
+    if err > PREDICT_TOL:
+        fail(f"{phase}: exported tables differ from the CPU's by {err} (limit {PREDICT_TOL})")
+    return f"export_embeddings() {u.shape} + {i.shape} round-trips, the CPU's within {err:.3g}"
+
+
+def serve_best_and_final(phase, data, root_dir, device):
+    """use_best on a recommender whose engine holds the JAX MF run's last/
+    (epoch 33) and whose best checkpoint is epoch 13's: recommend() with
+    use_best True, False, True serves best, final, best (the cold loads'
+    lists), and test() after it gives the best checkpoint's row."""
+    cfg = load_config(MF_CHECKPOINT).replace(system={"root_dir": root_dir})
+    rec = MatrixFactorization(cfg, device=device)
+    rec.data = data
+    rec.model = rec._build_model(data.n_users, data.n_items)
+    rec.engine = TrainEngine(cfg, rec.device).build(rec.model, data)
+    rec.engine.checkpoint_dir = MF_CHECKPOINT  # the run whose best checkpoint serving reads
+    rec.load(os.path.join(MF_CHECKPOINT, "last"))  # a recommender with an engine restores its whole state
+    best = MatrixFactorization(cfg, device=device).load(MF_CHECKPOINT, data)
+    final = MatrixFactorization(cfg, device=device).load(os.path.join(MF_CHECKPOINT, "last"), data)
+    want = {True: best.recommend(k=10)[DEFAULT_ITEM_COL], False: final.recommend(k=10)[DEFAULT_ITEM_COL]}
+    for use_best in (True, False, True):
+        if not np.array_equal(rec.recommend(k=10, use_best=use_best)[DEFAULT_ITEM_COL], want[use_best]):
+            fail(f"{phase}: recommend(use_best={use_best}) is not the {'best' if use_best else 'final'} "
+                 "checkpoint's list")
+    if rec.test() != best.test():
+        fail(f"{phase}: test() after serving the final parameters is not the best checkpoint's")
+    differ = int((want[True] != want[False]).reshape(-1, 10).any(axis=1).sum())
+    log(phase, f"use_best True, False, True served the best (epoch 13), the final (epoch 33) and the best "
+        f"checkpoint's lists ({differ} of {data.n_users} users' lists differ between the two); test() after them "
+        "is the best checkpoint's row")
+
+
+def per_user_against_cpu(phase, data, root_dir, device):
+    """test() with save_mode "per_user" writes the same rows on ``device``
+    as on the CPU, predictions within PREDICT_TOL."""
+    import csv
+    import glob
+
+    tables = []
+    for label, where in (("served", device), ("cpu", "cpu")):
+        root = os.path.join(root_dir, f"per-user-{label}")
+        cfg = load_config(MF_CHECKPOINT).replace(system={"root_dir": root, "save_mode": "per_user"})
+        MatrixFactorization(cfg, device=where).load(MF_CHECKPOINT, data).test()
+        (path,) = glob.glob(os.path.join(root, "results", "*_per_user.csv"))
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        tables.append((rows[0], np.array(rows[1:], dtype=np.float64)))
+    (head, got), (_, want) = tables
+    err = float(np.abs(got[:, 3] - want[:, 3]).max()) if len(got) == len(want) else np.inf
+    if head != ["col_user", "col_item", "col_rating", "col_prediction"] or got.shape != want.shape \
+            or not np.array_equal(got[:, :3], want[:, :3]) or err > PREDICT_TOL:
+        fail(f"{phase}: the per-user file differs from the CPU's ({got.shape} vs {want.shape}, predictions by {err})")
+    log(phase, f"save_mode per_user: {len(got)} rows, the CPU's users, items and relevance, predictions within "
+        f"{err:.3g}")
+
+
+def serving_surface(root_dir, device="cuda"):
+    """Phase 34: the MF, LightGCN and SASRec checkpoints served on
+    ``device`` through every recommend() route against the port on the CPU,
+    the full-catalog evaluators against the JAX package's metrics,
+    export_embeddings(), use_best both ways and the per-user file. Returns
+    the kernels' counts on the path: the flash forward once a block for
+    each of SASRec's score_all calls on the device, nothing else."""
+    phase = "serving-surface"
+    data, seq = mf_split(), seq_split()
+    zero_kernel_counts()
+    flash_expected = 0
+    for name, (cls, path) in SERVING_FAMILY.items():
+        d = seq if name == "SASRec" else data
+        cfg = load_config(path).replace(system={"root_dir": root_dir})
+        rec, cpu = cls(cfg, device=device).load(path, d), cls(cfg, device="cpu").load(path, d)
+        calls = serve_routes(f"{phase}/{name}", rec, cpu, device)
+        evaluated = evaluators_against_jax(f"{phase}/{name}", name, rec, device)
+        if name == "SASRec":
+            n_users, n_eval = d.n_users, len(eval_relevance(d)[0])
+            flash_expected = rec.model.num_blocks * (calls * -(-n_users // 4096) + evaluated * -(-n_eval // 1024))
+        else:
+            log(f"{phase}/{name}", exported_tables(f"{phase}/{name}", rec, cpu, root_dir))
+    serve_best_and_final(f"{phase}/use-best", data, root_dir, device)
+    per_user_against_cpu(f"{phase}/per-user", data, root_dir, device)
+    synchronize(device)
+    counts = kernel_counts()
+    if torch.device(device).type == "cuda":
+        if counts["flash_causal_attention_fwd"] != flash_expected or any(
+                v for key, v in counts.items() if key != "flash_causal_attention_fwd"):
+            fail(f"{phase}: kernel launches {counts}, expected the flash forward {flash_expected} times alone")
+        log(phase, f"flash forward launches on the path: {flash_expected} (= {flash_expected} expected: SASRec's "
+            "score_all calls, a launch a block); no other kernel")
+    return counts
+
+
+def tie_matrix():
+    """tests/test_torch_topk.py's tied scores: values on a 0.5 grid, a row
+    of -0.0 with one +0.0, a row of NEG_INF and a row a third NEG_INF."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(-3, 4, (64, 300)).astype(np.float32) * 0.5
+    x[0] = -0.0
+    x[0, 7] = 0.0
+    x[1, :] = NEG_INF
+    x[2, ::3] = NEG_INF
+    return torch.from_numpy(x)
+
+
+def total_order_ids(scores, k):
+    """The plain version of topk_lowest_index: the ids of each row's k
+    largest entries of a CPU tensor by a stable descending sort in
+    ``lax.top_k``'s total order (-0.0 below +0.0)."""
+    x = scores.double()
+    x = torch.where((x == 0) & torch.signbit(x), torch.tensor(-1e-300, dtype=torch.float64), x)
+    return torch.sort(x, dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def ties_on_device(phase, device, ks=(1, 7, 40, 300)):
+    """topk_lowest_index on ``device`` over the tie matrix in float32 and
+    bfloat16: the CPU's ids, values and signs, and the total-order sort's
+    ids, exactly. Returns the cases held."""
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = tie_matrix().to(dtype)
+        for k in ks:
+            got_v, got_i = topk_lowest_index(x.to(device), k)
+            want_v, want_i = topk_lowest_index(x, k)
+            got_v = got_v.cpu()
+            if not (torch.equal(got_i.cpu(), want_i) and torch.equal(want_i, total_order_ids(x, k))
+                    and torch.equal(got_v, want_v) and torch.equal(torch.signbit(got_v), torch.signbit(want_v))):
+                fail(f"{phase}: topk_lowest_index on the tie matrix ({dtype}, k {k}) is not the CPU's and the "
+                     "total-order sort's")
+            cases += 1
+    return cases
+
+
+def bf16_ties_exact(phase, u_emb, i_emb, excl, approx, k, cpu_users):
+    """The bfloat16 route's tie order held exactly on the card's own
+    scores: retrieval_topk's matmul for every user, the first ``cpu_users``
+    rows copied to the CPU. topk_lowest_index of those rows on the device
+    gives the total-order sort's k + T ids, and the approx route's ids for
+    those users are the sort's top k with the excluded ids set to NEG_INF.
+    Returns the rows whose (k+T)-th value ties an entry left out."""
+    t = excl.shape[1]
+    scores = u_emb.to(torch.bfloat16) @ i_emb.to(torch.bfloat16).T
+    got = topk_lowest_index(scores[:cpu_users], k + t)[1].cpu()
+    block = scores[:cpu_users].cpu()
+    del scores
+    if not torch.equal(got, total_order_ids(block, k + t)):
+        fail(f"{phase}: topk_lowest_index on the card's bfloat16 scores is not the total-order sort's ids")
+    kth = torch.topk(block.float(), k + t, dim=1).values[:, -1:]
+    tied = int(((block.float() >= kth).sum(dim=1) > k + t).sum())
+    block[torch.arange(cpu_users)[:, None], torch.as_tensor(excl[:cpu_users]).long()] = NEG_INF
+    if not np.array_equal(approx[:cpu_users], total_order_ids(block, k).numpy()):
+        fail(f"{phase}: the bfloat16 route's ids for the first {cpu_users} users are not the total-order sort's "
+             "of the card's scores with the excluded ids masked")
+    return tied
+
+
+def retrieval_bound_ms(n_users, n_items, width, dtype):
+    """(ms, "bytes" or "operations"): the score matrix written and read
+    once against the matmul's operations at the card's peak for the type."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    bytes_ms = 2 * n_users * n_items * size / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n_users * n_items * width / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def retrieval_at_scale(seed, device="cuda", n_users=RETRIEVAL_SCALE["n_users"], n_items=RETRIEVAL_SCALE["n_items"],
+                       emb_dim=RETRIEVAL_SCALE["emb_dim"], k=RETRIEVAL_SCALE["k"], t=RETRIEVAL_SCALE["t"],
+                       cpu_users=RETRIEVAL_CPU_USERS, item_block=RETRIEVAL_ITEM_BLOCK):
+    """Phase 35: bench_retrieval_scale's shape: MF tables from the
+    initializer under ``seed``, ``t`` excluded ids a user from
+    ``np.random.default_rng(0)`` (bench.py:423-425). Exact float32
+    ``retrieval_topk`` gives a plain full sort's ids on the CPU for the
+    first ``cpu_users`` users, ``streaming_topk`` exact's ids, and the
+    bfloat16 scores ("approx") a top-k recall of at least RECALL_TARGET
+    against exact; users/s of each route beside its bound, the peak device
+    memory, and topk_lowest_index against a full sort. Returns the
+    numbers."""
+    from beta_recsys_tpu_torch.models.mf import MF
+
+    phase = "retrieval-162k"
+    model = MF({"emb_dim": emb_dim}, n_users, n_items, device=device).init_weights(torch.Generator().manual_seed(seed))
+    u_emb, i_emb = (x.detach() for x in model.user_item_embeddings_trimmed())
+    excl = np.random.default_rng(0).integers(0, n_items, (n_users, t)).astype(np.int32)
+    ex = torch.as_tensor(excl, device=device)
+    mask = torch.zeros((n_users, n_items), dtype=torch.bool, device=device)
+    mask[torch.arange(n_users, device=device)[:, None], ex.long()] = True
+    routes = {
+        "exact float32": lambda: retrieval_topk(u_emb, i_emb, k, exclude_list=ex, mode="exact", score_dtype="float32"),
+        "approx bfloat16": lambda: retrieval_topk(u_emb, i_emb, k, exclude_list=ex, mode="approx",
+                                                  score_dtype="bfloat16"),
+        f"streaming block {item_block}": lambda: streaming_topk(u_emb, i_emb, k, block=item_block, exclude_mask=mask),
+    }
+    out, ids = {}, {}
+    for name, fn in routes.items():
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        (values, idx), secs = timed(fn, device)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if torch.device(device).type == "cuda" else None
+        dtype = torch.bfloat16 if "bfloat16" in name else torch.float32
+        bound, by = retrieval_bound_ms(n_users, n_items, u_emb.shape[1], dtype)
+        ids[name] = idx.cpu().numpy()
+        out[name] = {"users_per_s": n_users / secs, "ms": secs * 1e3, "bound_ms": bound, "bound_by": by,
+                     "peak_gib": peak}
+        if not torch.isfinite(values).all():
+            fail(f"{phase}: {name} returned non-finite scores")
+    exact, approx, stream = (ids[name] for name in routes)
+    if (exact[:, :, None] == excl[:, None, :]).any() or (stream[:, :, None] == excl[:, None, :]).any():
+        fail(f"{phase}: an excluded id was returned")
+    u_cpu, i_cpu = u_emb[:cpu_users].cpu(), i_emb.cpu()
+    scores = u_cpu @ i_cpu.T
+    scores[torch.arange(cpu_users)[:, None], torch.as_tensor(excl[:cpu_users]).long()] = NEG_INF
+    plain = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k].numpy()
+    differ_cpu = same_ids(phase, "exact vs a full sort on the CPU", exact[:cpu_users], plain,
+                          lambda rows, cols: np.take_along_axis(scores[rows].numpy(), cols, axis=1))
+
+    def card_scores(rows, cols):
+        r = torch.as_tensor(rows, device=device)
+        return (u_emb[r][:, None, :] * i_emb[torch.as_tensor(cols, device=device)]).sum(-1).cpu().numpy()
+
+    differ_stream = same_ids(phase, "streaming vs exact", stream, exact, card_scores)
+    recall = float(np.mean([len(set(a) & set(e)) / k for a, e in zip(approx, exact)]))
+    if recall < RECALL_TARGET:
+        fail(f"{phase}: the bfloat16 scores' top-{k} recall against exact is {recall:.4f} < {RECALL_TARGET}")
+    tied = bf16_ties_exact(phase, u_emb, i_emb, excl, approx, k, cpu_users)
+    tie_cases = ties_on_device(phase, device)
+    block = (u_emb[:2048] @ i_emb.T).contiguous()
+    route_s = timed(lambda: topk_lowest_index(block, k + t), device)[1]
+    sort_s = timed(lambda: torch.sort(block, dim=1, descending=True, stable=True), device)[1]
+    out["topk_route_vs_sort_ms"] = (route_s * 1e3, sort_s * 1e3)
+    out["recall"] = recall
+    log(phase, f"{n_users} users x {n_items} items x d {u_emb.shape[1]}, k {k}, {t} excluded ids a user: "
+        + "; ".join(f"{name} {r['users_per_s']:.1f} users/s ({r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+                    f"{r['bound_by']}, peak {r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 3)} "
+                    "GiB)" for name, r in out.items() if isinstance(r, dict)))
+    log(phase, f"exact ids = a full sort's on the CPU for the first {cpu_users} users ({differ_cpu} rows differ at "
+        f"ties); streaming ids = exact's ({differ_stream} rows differ at ties); bfloat16 top-{k} recall {recall:.4f} "
+        f"(>= {RECALL_TARGET}); topk_lowest_index(k {k + t}) on 2048 x {n_items} {route_s * 1e3:.3f} ms against a "
+        f"full stable sort {sort_s * 1e3:.3f} ms")
+    log(phase, f"bfloat16 tie order exact: on the card's scores of the first {cpu_users} users ({tied} of them tie at "
+        f"the {k + t}-th value) topk_lowest_index and the bfloat16 route give the total-order sort's ids; the tie "
+        f"matrix in {tie_cases} cases (float32 and bfloat16, k 1-300) gives the CPU's ids")
+    return out
+
+
+def engine_state(engine):
+    """Everything a run carries from epoch to epoch, as tensors on the CPU."""
+    names = {id(p): n for n, p in engine.model.named_parameters()}
+    out = {f"param/{k}": v.detach().cpu().clone() for k, v in engine.model.state_dict().items()}
+    for p, st in engine.optimizer.state.items():
+        for key, value in st.items():
+            out[f"opt/{names[id(p)]}/{key}"] = torch.as_tensor(value).cpu().clone()
+    if engine.sparse_optim:
+        out["sparse/step"] = torch.tensor(engine.epoch_fn.state["step"])
+        for name, (m, v) in engine.epoch_fn.state["moments"].items():
+            out[f"sparse/{name}/m"], out[f"sparse/{name}/v"] = m.cpu().clone(), v.cpu().clone()
+    out["generator"] = engine.generator.get_state()
+    bk = engine.bookkeeper
+    out["bookkeeper"] = torch.tensor([bk.best_valid_performance, bk.best_epoch, bk.n_no_update], dtype=torch.float64)
+    return out
+
+
+def resume_repeats(phase, seed, root_dir, data, device="cuda", epochs=RESUME_EPOCHS, **model):
+    """``epochs`` epochs, then a fresh engine's resume_training from their
+    last/ for ``epochs`` more, equal to 2 * ``epochs`` straight epochs bit
+    for bit: parameters, optimizer state, lazy-Adam moments and step,
+    generator and bookkeeper. Returns fused_rowadam's launches (one a step
+    of the three runs)."""
+    cfg = mf_config(seed, root_dir, **model)
+    valid = data.eval_candidates(data.valid[0])
+
+    def engine():
+        built = build_model(cfg.model, data.n_users, data.n_items, {}, device)
+        return TrainEngine(cfg, device).build(built, data, valid)
+
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    first = engine()
+    first.train(max_epoch=epochs, verbose=False)
+    resumed = engine()
+    start = resumed.resume_training(first.checkpoint_dir)
+    resumed.train(max_epoch=2 * epochs, verbose=False)
+    straight = engine()
+    straight.train(max_epoch=2 * epochs, verbose=False)
+    synchronize(device)
+    got, want = engine_state(resumed), engine_state(straight)
+    differ = [key for key in want if key not in got or not torch.equal(got[key], want[key])]
+    if start != epochs or differ or list(got) != list(want):
+        fail(f"{phase}: resumed at {start}; the resumed run's state differs from the straight run's at {differ[:5]}")
+    steps = 4 * epochs * straight.epoch_fn.num_batches
+    launches = fused_rowadam.launches
+    if torch.device(device).type == "cuda" and model.get("row_update") == "fused":
+        check_launches("fused_rowadam", phase, launches, steps)
+    kind = "lazy Adam" if straight.sparse_optim else "dense Adam"
+    log(phase, f"{kind}: {epochs} epochs, then resume_training from last/ (start epoch {start}) for {epochs} more = "
+        f"{2 * epochs} straight epochs bit for bit ({len(want)} tensors: parameters, optimizer state"
+        f"{', moments, step' if straight.sparse_optim else ''}, generator, bookkeeper) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def jax_last_resumed(phase, root_dir, data, device="cuda"):
+    """The JAX MF run's last/ (epoch 33, 20 epochs without a gain) resumed:
+    the state equals the file's, the generator is seeded from its key data,
+    and training stops after one epoch, as the JAX engine's does."""
+    cfg = load_config(MF_CHECKPOINT).replace(system={"root_dir": root_dir})
+    built = build_model(cfg.model, data.n_users, data.n_items, {}, device)
+    engine = TrainEngine(cfg, device).build(built, data, data.eval_candidates(data.valid[0]))
+    start = engine.resume_training(MF_CHECKPOINT)
+    last = os.path.join(MF_CHECKPOINT, "last")
+    raw, meta = load_raw_checkpoint(last), load_metadata(last)
+    state = engine_state(engine)
+    params = flatten_params(raw["params"])
+    mu, nu = flatten_params(raw["opt_state"]["0"]["mu"]), flatten_params(raw["opt_state"]["0"]["nu"])
+    count = int(raw["opt_state"]["0"]["count"])
+    same = (all(torch.equal(state[f"param/{k}"], v) for k, v in params.items())
+            and all(torch.equal(state[f"opt/{k}/exp_avg"], mu[k]) and torch.equal(state[f"opt/{k}/exp_avg_sq"], nu[k])
+                    and int(state[f"opt/{k}/step"]) == count for k in params)
+            and engine.bookkeeper.n_no_update == meta["n_no_update"] and start == meta["epoch"] + 1
+            and engine.generator.initial_seed() == (int(raw["rng"][0]) << 32) | int(raw["rng"][1]))
+    if not same:
+        fail(f"{phase}: the resumed state is not the JAX last/ checkpoint's")
+    engine.train(verbose=False)
+    epochs = [h["epoch"] for h in engine.bookkeeper.history]
+    if epochs != [start] or not engine.bookkeeper.should_stop:
+        fail(f"{phase}: after resuming at {start} the run trained epochs {epochs}; the JAX engine stops after one")
+    log(phase, f"the JAX MF last/ (epoch {meta['epoch']}, {meta['n_no_update']} epochs without a gain, Adam count "
+        f"{count}) resumed: parameters, moments and count equal the file's, the generator seeded from its key "
+        f"data; one epoch ({start}) trained, then the early stop, as in the JAX package")
+
+
+def resume_phase(seed, root_dir, device="cuda", data=None, epochs=RESUME_EPOCHS):
+    """Phase 36: resume_repeats for mf-sparse (fused_rowadam) and mf-dense,
+    and jax_last_resumed, each its own path with the counts set to 0 before
+    it. Returns the kernels' counts by path: fused_rowadam on mf-sparse's,
+    nothing else anywhere."""
+    data = data or mf_split()
+    counts = {}
+    resume_repeats("resume-mf-sparse", seed, root_dir, data, device, epochs, sparse_optim=True, row_update="fused")
+    counts["resume-mf-sparse"] = kernel_counts()
+    zero_kernel_counts()
+    resume_repeats("resume-mf-dense", seed, root_dir, data, device, epochs)
+    counts["resume-mf-dense"] = kernel_counts()
+    zero_kernel_counts()
+    jax_last_resumed("resume-jax-last", root_dir, data, device)
+    counts["resume-jax-last"] = kernel_counts()
+    for path, found in counts.items():
+        extra = {k: v for k, v in found.items() if v and not (k == "fused_rowadam" and path == "resume-mf-sparse")}
+        if extra:
+            fail(f"{path}: launched {extra}; phase 36 runs fused_rowadam on mf-sparse alone")
+    return counts
+
+
+def serving_and_resume_phases(seed, root_dir):
+    """Phases 34-36, each timed. Returns the kernels' counts by path."""
+    counts, secs = {}, []
+    t0 = time.perf_counter()
+    counts["serving-surface"] = serving_surface(root_dir)
+    secs.append(time.perf_counter() - t0)
+    log("serving-surface", f"phase 34 took {secs[-1]:.2f} s")
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    retrieval_at_scale(seed)
+    counts["retrieval-162k"] = check_no_kernel("retrieval-162k")
+    secs.append(time.perf_counter() - t0)
+    log("retrieval-162k", f"phase 35 took {secs[-1]:.2f} s")
+    t0 = time.perf_counter()
+    counts.update(resume_phase(seed, root_dir))
+    secs.append(time.perf_counter() - t0)
+    log("resume", f"phase 36 took {secs[-1]:.2f} s; phases 34-36 {sum(secs):.2f} s")
+    return counts
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
@@ -2871,7 +3455,7 @@ PROFILE_SEQ = "seq-models"  # phases 28-30's profiles
 PROFILE_GROCERY = "grocery-models"  # phases 31-33's profiles
 # All five run in one child process after phase 33 (one process start, not five).
 PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ, PROFILE_GROCERY)
-PROFILED_CAPPED_STEPS = 20  # training steps profiled for each model of phases 21-22 and 24-30
+PROFILED_CAPPED_STEPS = 10  # training steps profiled for each model of phases 21-22 and 24-30
 
 
 def profile_phase(phase, seed):
@@ -3075,8 +3659,9 @@ def main():
         graph_counts.update(ssl_phases(args.seed, root_dir))
         graph_counts.update(seq_phases(args.seed, root_dir))
         graph_counts.update(grocery_phases(args.seed, root_dir))
+        graph_counts.update(serving_and_resume_phases(args.seed, root_dir))
         profiled_in_child(PROFILES, args.seed)
-    for path, counts in graph_counts.items():  # phases 17-33: every count 0 (check_no_kernel)
+    for path, counts in graph_counts.items():  # phases 17-36: 0 but phases 34's flash and 36's fused_rowadam
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

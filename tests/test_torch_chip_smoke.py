@@ -623,3 +623,118 @@ def test_profile_window_takes_the_triple_trainer(name, tmp_path, monkeypatch):
     b = trainer.batch_size
     assert seen["drew"] and seen["steps"] == 2 and np.isfinite(seen["loss"])
     assert calls == [[(2, b), (2, b, 5), (2, b, 5), (2, b, 5)]]
+
+
+def test_expected_full_catalog_metrics_are_the_jax_scripts():
+    """EXPECTED_FULL_CATALOG_METRICS are what the committed
+    port_tools/jax_full_catalog_metrics.py prints from the JAX package."""
+    sys.path.insert(0, os.path.join(REPO, "port_tools"))
+    from jax_full_catalog_metrics import CHECKPOINTS, full_catalog_metrics
+
+    assert {name: path for name, (_, path) in chip_smoke.SERVING_FAMILY.items()} == {
+        name: os.path.join(REPO, path) for name, path in CHECKPOINTS.items()}
+    got = full_catalog_metrics()
+    want = chip_smoke.EXPECTED_FULL_CATALOG_METRICS
+    assert set(got) == set(want)
+    for name in want:
+        assert set(got[name]) == set(want[name])
+        for evaluator, metrics in want[name].items():
+            assert set(got[name][evaluator]) == set(metrics)
+            for key, value in metrics.items():
+                assert got[name][evaluator][key] == pytest.approx(value, rel=0, abs=1e-12), (name, evaluator, key)
+
+
+def test_eval_relevance_holds_the_test_positives():
+    data = chip_smoke.mf_split()
+    users, rel = chip_smoke.eval_relevance(data)
+    assert len(users) == rel.nnz == 943 and (rel.data == 1).all()
+    assert np.array_equal(np.unique(rel.nonzero()[0]), users)
+
+
+def test_phase_34_runs_its_checks_on_the_cpu(tmp_path, monkeypatch):
+    """The serving surface on the CPU against itself: every route, the
+    evaluators against the JAX metrics (the constants above), the export,
+    use_best both ways and the per-user file; no kernel counted."""
+    logged = []
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: logged.append((phase, msg)))
+    counts = chip_smoke.serving_surface(str(tmp_path), device="cpu")
+    assert not any(counts.values())
+    text = "\n".join(f"{phase}: {msg}" for phase, msg in logged)
+    for want in ("MF: recommend(k=10) over 943 users: streaming exact float32", "fast approx bfloat16",
+                 "SASRec: recommend(k=10) over 943 users: score_all", "TopKRetrievalEvaluator (streaming route)",
+                 "LightGCN: export_embeddings() (943, 64) + (1682, 64) round-trips", "use_best True, False, True",
+                 "save_mode per_user: 95243 rows"):
+        assert want in text, want
+
+
+def test_phase_35_runs_its_checks_on_the_cpu_at_a_narrow_size():
+    out = chip_smoke.retrieval_at_scale(0, device="cpu", n_users=512, n_items=3000, cpu_users=64, item_block=700)
+    assert out["recall"] >= chip_smoke.RECALL_TARGET
+    assert {"exact float32", "approx bfloat16", "streaming block 700"} <= set(out)
+
+
+def test_total_order_ids_rank_negative_zero_below_zero_and_ties_by_id():
+    x = torch.tensor([[-0.0, 0.0, 1.0, 1.0, chip_smoke.NEG_INF]])
+    assert chip_smoke.total_order_ids(x, 5).tolist() == [[2, 3, 1, 0, 4]]
+    assert chip_smoke.total_order_ids(x.bfloat16(), 2).tolist() == [[2, 3]]
+
+
+def test_ties_on_device_holds_every_case_and_fails_a_wrong_order(monkeypatch):
+    assert chip_smoke.ties_on_device("p", "cpu") == 8
+    def highest_id_first(x, k):
+        values, idx = torch.sort(torch.flip(x.float(), [1]), dim=1, descending=True, stable=True)
+        return values[:, :k], x.shape[1] - 1 - idx[:, :k]
+
+    monkeypatch.setattr(chip_smoke, "topk_lowest_index", highest_id_first)
+    with pytest.raises(SystemExit):
+        chip_smoke.ties_on_device("p", "cpu")
+
+
+def test_bf16_ties_exact_fails_ids_that_are_not_the_sorts():
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.normal(0, 0.1, (32, 8)).astype(np.float32))
+    items = torch.from_numpy(rng.normal(0, 0.1, (500, 8)).astype(np.float32))
+    excl = rng.integers(0, 500, (32, 4)).astype(np.int32)
+    approx = chip_smoke.retrieval_topk(u, items, 5, exclude_list=torch.as_tensor(excl), mode="approx",
+                                       score_dtype="bfloat16")[1].numpy()
+    assert chip_smoke.bf16_ties_exact("p", u, items, excl, approx, 5, 16) >= 0
+    approx[3, [0, 1]] = approx[3, [1, 0]]
+    with pytest.raises(SystemExit):
+        chip_smoke.bf16_ties_exact("p", u, items, excl, approx, 5, 16)
+
+
+def test_same_ids_allows_ties_only():
+    scores = np.array([[3.0, 2.0, 2.0, 1.0]])
+    lookup = lambda rows, cols: np.take_along_axis(scores[rows], cols, axis=1)  # noqa: E731
+    assert chip_smoke.same_ids("p", "w", np.array([[0, 2]]), np.array([[0, 1]]), lookup) == 1
+    with pytest.raises(SystemExit):
+        chip_smoke.same_ids("p", "w", np.array([[0, 3]]), np.array([[0, 1]]), lookup)
+
+
+def test_retrieval_bound_at_the_bench_shape():
+    """The score matrix's bytes bind both types at 10,240 x 162,000 x 66."""
+    ms, by = chip_smoke.retrieval_bound_ms(10_240, 162_000, 66, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(2 * 10_240 * 162_000 * 4 / 3.35e12 * 1e3)
+    ms, by = chip_smoke.retrieval_bound_ms(10_240, 162_000, 66, torch.bfloat16)
+    assert by == "bytes" and ms == pytest.approx(2 * 10_240 * 162_000 * 2 / 3.35e12 * 1e3)
+    ms, by = chip_smoke.retrieval_bound_ms(64, 100, 4096, torch.float32)
+    assert by == "operations"
+
+
+def test_phase_36_runs_its_checks_on_the_cpu(tmp_path, monkeypatch):
+    """One epoch, resumed for one more, against two straight, for lazy Adam
+    and the dense trainer, and the JAX last/ resumed; one thread, so the
+    CPU's sums repeat."""
+    logged = []
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: logged.append(msg))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counts = chip_smoke.resume_phase(0, str(tmp_path), device="cpu", epochs=1)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(counts) == {"resume-mf-sparse", "resume-mf-dense", "resume-jax-last"} and not any(
+        any(c.values()) for c in counts.values())
+    text = "\n".join(logged)
+    assert "lazy Adam: 1 epochs, then resume_training" in text and "dense Adam: 1 epochs" in text
+    assert "one epoch (34) trained, then the early stop" in text

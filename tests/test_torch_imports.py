@@ -84,6 +84,20 @@ prob, alias = alias_tables(frame["col_item"], 3, "cpu")
 alias_negatives(None, (2, 3), prob, alias)
 vbcar_noise(None, (2, 3), "cpu")
 UserKNN(dict(), 2, 3, dict(interactions=chip_smoke.np.eye(2, 3)), device="cpu")
+from beta_recsys_tpu_torch.core.eval_engine import FullCatalogEvaluator, TopKRetrievalEvaluator, write_per_user
+from beta_recsys_tpu_torch.core.rating_eval import RatingEvaluator
+from beta_recsys_tpu_torch.models.mf import MF
+from beta_recsys_tpu_torch.ops.topk import exclusion_lists, retrieval_topk, streaming_topk
+torch = chip_smoke.torch
+mf = MF(dict(), 4, 5, device="cpu").init_weights(torch.Generator().manual_seed(0))
+ex = exclusion_lists(csr)
+retrieval_topk(torch.ones(4, 3), torch.ones(5, 3), 2, exclude_list=ex, user_chunk=2)
+streaming_topk(torch.ones(4, 3), torch.ones(5, 3), 2, block=2, exclude_mask=torch.zeros(4, 5, dtype=torch.bool))
+FullCatalogEvaluator(mf, [0, 1], csr, csr).evaluate()
+TopKRetrievalEvaluator(mf, [0, 1], csr, csr, ks=(1, 2), mode="approx").evaluate()
+RatingEvaluator(mf, dict(col_user=[0, 1], col_item=[1, 2], col_rating=[1.0, 0.0]), ("rmse", "auc")).evaluate()
+chip_smoke.retrieval_bound_ms(4, 5, 3, torch.float32)
+chip_smoke.same_ids("p", "w", chip_smoke.np.zeros((1, 2)), chip_smoke.np.zeros((1, 2)), None)
 print(len(names))
 """
 
