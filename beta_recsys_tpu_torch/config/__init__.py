@@ -39,6 +39,12 @@ class ConfigSection:
     def __setattr__(self, key, value):
         raise AttributeError("Config sections are immutable; pass derived artifacts explicitly")
 
+    def __copy__(self):
+        return self  # immutable: a copy may share it (a model's replica on another card does)
+
+    def __deepcopy__(self, memo):
+        return self
+
     def get(self, key, default=None):
         return self._data.get(key, default)
 

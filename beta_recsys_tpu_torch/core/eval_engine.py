@@ -11,8 +11,18 @@ block's relevance and exclusion masks are built on the device from index
 arrays cached at construction. The JAX package pads every block to one
 shape so XLA compiles once; PyTorch has no such need, so the last block is
 simply shorter. Evaluators score with the model's current parameters.
+
+With a ``mesh``, ``RankingEvaluator`` and ``FullCatalogEvaluator`` split their
+user rows over its "data" axis: data shard d scores its rows on
+``mesh.devices[d][0]`` (the model there, or its replica, synced before each
+evaluation; ``replicas`` hands in ones that already exist, as the trainer's),
+and the shards' metric sums (float64) are added in rank order (one ``psum``),
+then divided by the real users, as the JAX package's sharded means are
+rescaled by padded/real. Without a mesh the model's device is the one shard:
+a float32 mean times at most 2^24 rows and divided again is the same mean.
 """
 
+import contextlib
 import csv
 import os
 import time
@@ -22,6 +32,9 @@ import torch
 
 from ..ops.metrics import metrics_from_top, ranking_metrics
 from ..ops.topk import NEG_INF, exclusion_lists, retrieval_topk, streaming_topk
+from ..parallel.collectives import psum
+from ..parallel.data_parallel import Replicas
+from ..parallel.mesh import DATA_AXIS
 from ..utils.constants import MAX_N_UPDATE
 
 DEFAULT_METRICS = ("ndcg", "precision", "recall", "map")
@@ -31,26 +44,73 @@ DEFAULT_METRICS = ("ndcg", "precision", "recall", "map")
 FAST_RETRIEVAL_WIDTH = 256
 
 
-class RankingEvaluator:
-    """Evaluation over fixed candidate sets (1 positive + n negatives)."""
+def _data_devices(mesh):
+    """Each data shard's device: the first of its row."""
+    return [row[0] for row in mesh.devices]
 
-    def __init__(self, model, candidates, metrics=("ndcg", "precision", "recall", "map"), ks=(5, 10, 20)):
+
+def _metric_sum(out, n):
+    """A shard's metric means times its rows: its per-user sums, float64."""
+    return torch.stack(list(out.values())).double() * n
+
+
+def _sum_in_rank_order(parts):
+    """The shards' metric-sum vectors added in rank order (one psum), on the
+    host."""
+    return psum(parts)[0].cpu().tolist()
+
+
+def _replicas(model, devices, replicas):
+    """``replicas`` (the model on each of ``devices``), built when None."""
+    return Replicas(model, devices) if replicas is None else replicas
+
+
+class RankingEvaluator:
+    """Evaluation over fixed candidate sets (1 positive + n negatives).
+
+    With ``mesh`` the user rows are padded to a multiple of the data-axis
+    size by repeating the last row with empty masks and zero relevance, as
+    the JAX package pads them (the padded rows stay in ``users``, ``items``,
+    ``relevance`` and ``mask``; ``write_per_user`` drops them with their
+    masks), and each data shard scores its slice."""
+
+    def __init__(self, model, candidates, metrics=("ndcg", "precision", "recall", "map"), ks=(5, 10, 20),
+                 mesh=None, replicas=None):
         self.model = model
         self.metrics = tuple(metrics)
         self.ks = tuple(int(k) for k in ks)
+        self.mesh = mesh
+        users, items = np.asarray(candidates.users), np.asarray(candidates.items)
+        relevance, mask = np.asarray(candidates.relevance), np.asarray(candidates.mask)
+        self.n_real = users.shape[0]
+        devices = [model.device] if mesh is None or not self.n_real else _data_devices(mesh)
+        pad = (-self.n_real) % len(devices)
+        if pad:
+            users = np.concatenate([users, np.repeat(users[-1:], pad, axis=0)])
+            items = np.concatenate([items, np.repeat(items[-1:], pad, axis=0)])
+            relevance = np.concatenate([relevance, np.zeros((pad, *relevance.shape[1:]), relevance.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad, *mask.shape[1:]), mask.dtype)])
         device = model.device
-        self.users = torch.as_tensor(candidates.users, dtype=torch.long, device=device)
-        self.items = torch.as_tensor(candidates.items, dtype=torch.long, device=device)
-        self.relevance = torch.as_tensor(candidates.relevance, device=device)
-        self.mask = torch.as_tensor(candidates.mask, device=device)
+        self.users = torch.as_tensor(users, dtype=torch.long, device=device)
+        self.items = torch.as_tensor(items, dtype=torch.long, device=device)
+        self.relevance = torch.as_tensor(relevance, device=device)
+        self.mask = torch.as_tensor(mask, device=device)
+        self.replicas = _replicas(model, devices, replicas)
+        rows = users.shape[0] // len(devices)
+        self.shards = [(dev, *(x[d * rows:(d + 1) * rows].to(dev) for x in (self.users, self.items,
+                                                                          self.relevance, self.mask)))
+                       for d, dev in enumerate(devices)]
 
     @torch.no_grad()
     def evaluate(self):
         """{metric@k: float} for the model's current parameters."""
-        scores = self.model.score_candidates(self.users, self.items)
-        out = ranking_metrics(scores, self.relevance, self.mask, self.metrics, self.ks)
-        values = torch.stack(list(out.values())).cpu().tolist()
-        return dict(zip(out, values))
+        self.replicas.sync()
+        sums = []
+        for device, users, items, relevance, mask in self.shards:
+            scores = self.replicas[device].score_candidates(users, items)
+            out = ranking_metrics(scores, relevance, mask, self.metrics, self.ks)
+            sums.append(_metric_sum(out, users.shape[0]))
+        return {key: value / max(self.n_real, 1) for key, value in zip(out, _sum_in_rank_order(sums))}
 
 
 def _canonical(csr):
@@ -80,40 +140,54 @@ class FullCatalogEvaluator:
     ids; ``relevance_csr`` and ``train_csr`` are (n_users, n_items) scipy
     sparse matrices whose duplicate entries are summed. ``evaluate()``
     returns the mean of every metric@k over the users ({} for none), keys
-    sorted as the JAX package's ``device_get`` of a dict returns them."""
+    sorted as the JAX package's ``device_get`` of a dict returns them.
+
+    With ``mesh``, ``user_block`` is rounded down to a multiple of the data
+    axis and each block's rows split over it (the last, shorter block as
+    evenly as it goes)."""
 
     def __init__(self, model, users, relevance_csr, train_csr, metrics=DEFAULT_METRICS, ks=(5, 10, 20),
-                 user_block=1024):
+                 user_block=1024, mesh=None, replicas=None):
         self.model = model
         self.metrics = tuple(metrics)
         self.ks = tuple(int(k) for k in ks)
-        self.user_block = int(user_block)
+        self.mesh = mesh
+        devices = [model.device] if mesh is None else _data_devices(mesh)
+        self.user_block = max(int(user_block) // len(devices), 1) * len(devices)
         self.users = np.asarray(users, dtype=np.int64)
         relevance_csr, train_csr = _canonical(relevance_csr), _canonical(train_csr)
-        device = model.device
-        self._blocks = []
+        self.replicas = _replicas(model, devices, replicas)
+        self._blocks = []  # a block: one (device, users, relevance COO, train COO) a data shard
         for start in range(0, len(self.users), self.user_block):
-            blk = self.users[start:start + self.user_block]
-            self._blocks.append((torch.as_tensor(blk, device=device), _coo_on(relevance_csr, blk, device),
-                                 _coo_on(train_csr, blk, device)))
+            parts = np.array_split(self.users[start:start + self.user_block], len(devices))
+            self._blocks.append([(dev, torch.as_tensor(blk, device=dev), _coo_on(relevance_csr, blk, dev),
+                                  _coo_on(train_csr, blk, dev)) for dev, blk in zip(devices, parts) if len(blk)])
 
     @torch.no_grad()
     def evaluate(self):
-        model, n_items = self.model, self.model.n_items
-        totals = {}
-        with model.holding_embeddings():
-            for users, rel_coo, trn_coo in self._blocks:
-                n = users.shape[0]
-                relevance = _dense(rel_coo, n, n_items, users.device)
-                seen = _dense(trn_coo, n, n_items, users.device) > 0
-                scores = model.score_all(users)[:, :n_items].masked_fill(seen, NEG_INF)
-                mask = torch.ones_like(seen)
-                out = ranking_metrics(scores, relevance, mask, self.metrics, self.ks)
-                values = torch.stack(list(out.values())).cpu().tolist()
-                for key, value in zip(out, values):
-                    # a block's mean times its rows is its per-user sum
-                    totals[key] = totals.get(key, 0.0) + value * n
-        return {key: totals[key] / max(len(self.users), 1) for key in sorted(totals)}
+        n_items = self.model.n_items
+        self.replicas.sync()
+        totals, keys = None, None
+        with contextlib.ExitStack() as held:
+            for model in self.replicas.by_device.values():
+                held.enter_context(model.holding_embeddings())
+            for shards in self._blocks:
+                sums = []
+                for device, users, rel_coo, trn_coo in shards:
+                    model = self.replicas[device]
+                    n = users.shape[0]
+                    relevance = _dense(rel_coo, n, n_items, device)
+                    seen = _dense(trn_coo, n, n_items, device) > 0
+                    scores = model.score_all(users)[:, :n_items].masked_fill(seen, NEG_INF)
+                    out = ranking_metrics(scores, relevance, torch.ones_like(seen), self.metrics, self.ks)
+                    keys = list(out)
+                    sums.append(_metric_sum(out, n))
+                block = _sum_in_rank_order(sums)
+                totals = block if totals is None else [t + b for t, b in zip(totals, block)]
+        if totals is None:
+            return {}
+        n = max(len(self.users), 1)
+        return {key: value / n for key, value in sorted(zip(keys, totals))}
 
 
 class TopKRetrievalEvaluator:

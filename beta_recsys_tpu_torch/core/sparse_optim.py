@@ -142,6 +142,15 @@ class SparseEpochTrainer(EpochBatches):
         self.dense_optimizer.step()
         return loss.detach()
 
+    @torch.no_grad()
+    def load_state(self, moments, step):
+        """Set the tables' moments from ``{name: (m, v)}`` (rows past the
+        table's own, a sharded run's padding, are cut) and the global step."""
+        self.state["step"] = int(step)
+        for name, (m, v) in self.state["moments"].items():
+            m.copy_(moments[name][0][: m.shape[0]])
+            v.copy_(moments[name][1][: v.shape[0]])
+
 
 # ---------------------------------------------------------------------------
 # Several devices: row-sharded tables and lazy-Adam shard updates
@@ -355,6 +364,34 @@ class ShardedSparseEpochTrainer(EpochBatches):
         package's sharded run holds (and checkpoints) them."""
         return {name: self._full(self.tables[name]) if name in self.tables else p.detach()
                 for name, p in self.model.named_parameters()}
+
+    @torch.no_grad()
+    def place(self):
+        """Shard the model's current tables again (padded to the model axis,
+        as ``shard_sparse_params`` places them) and copy its dense
+        parameters into every replica: the JAX ``_replace_on_mesh``."""
+        params = dict(self.model.named_parameters())
+        for name, shards in self.tables.items():
+            for row, placed in zip(shards, shard_table(params[name].detach(), self.mesh)):
+                for shard, part in zip(row, placed):
+                    shard.copy_(part)
+        for row in self.dense:
+            for replica in row:
+                for name, p in replica.items():
+                    if p is not params[name]:
+                        p.copy_(params[name])
+
+    @torch.no_grad()
+    def load_state(self, moments, step):
+        """Set the tables' moments from ``{name: (m, v)}``, whole tables,
+        padded or not, row-sharded as the tables are, and the global step."""
+        self.step_count = int(step)
+        for name, shards in self.moments.items():
+            for i in (0, 1):
+                placed = shard_table(moments[name][i][: self.tables[name][0][0].shape[0] * self.n_model], self.mesh)
+                for row, parts in zip(shards, placed):
+                    for mv, part in zip(row, parts):
+                        mv[i].copy_(part)
 
     @torch.no_grad()
     def assemble(self):

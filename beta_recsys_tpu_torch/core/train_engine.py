@@ -18,7 +18,10 @@ counterparts of ``make_sequence_epoch_fn`` and
 with a row protocol and ``"sparse_optim": true`` train through the
 lazy-Adam trainer of ``core/sparse_optim.py``; with ``system.mesh`` through
 its row-sharded counterpart on a device mesh (``ShardedSparseEpochTrainer``),
-routed as the JAX package routes it.
+routed as the JAX package routes it. Every other trainer takes the mesh
+through its ``DataParallelStep`` (``parallel/data_parallel.py``): data
+shards on a pure data axis, row-sharded tables on a model axis, batch
+sizes rounded down to a multiple of the data axis.
 
 As in the JAX package, an epoch's batches are formed once before its step
 loop (the row draw or permutation, and the negatives), drawn on the device
@@ -51,6 +54,7 @@ import torch
 
 from ..convert import flatten_params, nest_dotted, params_to_jax
 from ..device import resolve_device
+from ..parallel.data_parallel import DataParallelStep, Replicas, mesh_round_batch, pointwise_prepare
 from ..ops.sampling import (
     alias_negatives,
     make_membership_test,
@@ -177,16 +181,17 @@ class EpochBatches:
     one (pairwise), (num_neg,) for a multineg batch, rejected against the
     positive's user. Subclasses define ``step(users, pos, neg, generator) ->
     0-d loss tensor``; each step draws its dropout, if the model has any,
-    from the epoch's generator."""
+    from the epoch's generator. On a ``mesh`` the batch size is rounded down
+    to a multiple of its data axis (``mesh_round_batch``)."""
 
-    def __init__(self, train_arrays, batch_size, neg_sampler, device, neg_shape=()):
+    def __init__(self, train_arrays, batch_size, neg_sampler, device, neg_shape=(), mesh=None):
         self.device = torch.device(device)
         self.users = torch.as_tensor(train_arrays.users, dtype=torch.long, device=self.device)
         self.items = torch.as_tensor(train_arrays.items, dtype=torch.long, device=self.device)
         self.n = self.users.shape[0]
         if self.n == 0:
             raise ValueError("empty training set for interaction batches — check filters/splits")
-        self.batch_size = min(int(batch_size), self.n)
+        self.batch_size = mesh_round_batch(min(int(batch_size), self.n), mesh)
         self.num_batches = -(-self.n // self.batch_size)
         self.padded_size = self.num_batches * self.batch_size
         self.neg_sampler = neg_sampler
@@ -226,28 +231,22 @@ class DenseEpochTrainer(EpochBatches):
     (num_neg,): the ``"pairwise"`` and ``"multineg"`` branches of the JAX
     ``make_epoch_fn``, whose batch is {"users", "pos_items", "neg_items"}
     either way. After each optimizer step the model's ``post_update()``, if
-    it has one, moves the parameters no gradient reaches."""
+    it has one (BUIR's target EMA), moves the parameters no gradient reaches,
+    as the JAX ``make_epoch_fn`` step calls it. Each step goes through a
+    ``DataParallelStep`` (``self.dp``) on ``mesh`` (None: one device), whose
+    tables a model axis row-shards per ``default_param_rule``;
+    ``self.optimizer`` is the optimizer it steps."""
 
-    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, neg_shape=()):
-        super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device, neg_shape)
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, neg_shape=(), mesh=None,
+                 prepare=None):
+        super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device, neg_shape, mesh)
         self.model = model
-        self.optimizer = optimizer
+        self.dp = DataParallelStep(model, optimizer, mesh, prepare=prepare,
+                                   post_update=getattr(model, "post_update", None))
+        self.optimizer = self.dp.optimizer
 
     def step(self, users, pos, neg, generator):
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss({"users": users, "pos_items": pos, "neg_items": neg}, generator)
-        loss.backward()
-        self.optimizer.step()
-        self.post_update()
-        return loss.detach()
-
-    def post_update(self):
-        """The model's ``post_update()`` after the optimizer step, when it has
-        one (BUIR's target EMA), as the JAX ``make_epoch_fn`` step calls it."""
-        post = getattr(self.model, "post_update", None)
-        if post is not None:
-            with torch.no_grad():
-                post()
+        return self.dp({"users": users, "pos_items": pos, "neg_items": neg}, generator)
 
 
 class PointwiseEpochTrainer(DenseEpochTrainer):
@@ -266,8 +265,8 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
     B * num_neg) negatives, the negatives of each positive together. Both
     return the mean batch loss as a 0-d device tensor."""
 
-    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, num_neg):
-        super().__init__(model, optimizer, train_arrays, batch_size, neg_sampler)
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh=None):
+        super().__init__(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh, prepare=pointwise_prepare)
         self.ratings = torch.as_tensor(train_arrays.ratings, dtype=torch.float32, device=self.device)
         self.num_neg = int(num_neg)
 
@@ -294,30 +293,22 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
         return total / users.shape[0]
 
     def step(self, users, items, neg, labels, generator):
-        num_neg = neg.shape[0] // users.shape[0]
-        batch = {
-            "users": torch.cat([users, users.repeat_interleave(num_neg)]),
-            "items": torch.cat([items, neg]),
-            "labels": torch.cat([labels, labels.new_zeros(neg.shape)]),
-        }
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss(batch, generator)
-        loss.backward()
-        self.optimizer.step()
-        self.post_update()
-        return loss.detach()
+        # The raw fields: each data shard expands its own rows
+        # (``pointwise_prepare``), as the JAX grad function does.
+        return self.dp({"u": users, "it": items, "neg": neg, "r": labels}, generator)
 
 
-def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1):
+def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1, mesh=None):
     """The dense whole-epoch trainer for the model's pairwise, multineg or
-    pointwise batches (the last two with ``num_neg`` negatives a positive)."""
+    pointwise batches (the last two with ``num_neg`` negatives a positive),
+    on ``mesh`` when given."""
     kind = model.batch_kind
     if kind == "pairwise":
-        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler)
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh)
     if kind == "multineg":
-        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, (int(num_neg),))
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, (int(num_neg),), mesh)
     if kind == "pointwise":
-        return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg)
+        return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh)
     raise ValueError(f"make_epoch_fn handles pairwise/pointwise/multineg; got {kind}")
 
 
@@ -333,12 +324,14 @@ class SequenceEpochTrainer:
     each step's dropout from ``generator``; ``run_batches(rows, users, neg0,
     generator=None)`` trains on given (num_batches, B) rows and users and
     (num_batches, B, maxlen) 0-indexed negatives. Both return the mean batch
-    loss as a 0-d device tensor.
+    loss as a 0-d device tensor. Each step goes through a ``DataParallelStep``
+    on ``mesh`` (None: one device), as ``DenseEpochTrainer``'s does.
     """
 
-    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler):
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None):
         self.model = model
-        self.optimizer = optimizer
+        self.dp = DataParallelStep(model, optimizer, mesh)
+        self.optimizer = self.dp.optimizer
         self.device = next(model.parameters()).device
         self.users, self.seq, self.pos = (
             torch.as_tensor(seq_arrays[key], dtype=torch.long, device=self.device) for key in ("users", "seq", "pos")
@@ -346,7 +339,7 @@ class SequenceEpochTrainer:
         self.n = self.users.shape[0]
         if self.n == 0:
             raise ValueError("empty training set for sequence batches (users need >= 2 interactions)")
-        self.batch_size = min(int(batch_size), self.n)
+        self.batch_size = mesh_round_batch(min(int(batch_size), self.n), mesh)
         self.num_batches = max(self.n // self.batch_size, 1)
         self.maxlen = self.seq.shape[1]
         self.neg_sampler = neg_sampler
@@ -376,11 +369,7 @@ class SequenceEpochTrainer:
         return {"users": users, "seq": self.seq[rows], "pos": pos, "neg": torch.where(pos != 0, neg0 + 1, 0)}
 
     def step(self, rows, users, neg0, generator):
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.loss(self.batch(rows, users, neg0), generator)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        return self.dp(self.batch(rows, users, neg0), generator)
 
 
 class SequenceTimeEpochTrainer(SequenceEpochTrainer):
@@ -389,8 +378,8 @@ class SequenceTimeEpochTrainer(SequenceEpochTrainer):
     ``SequentialData.tisasrec_arrays``): the counterpart of
     ``make_sequence_time_epoch_fn`` (TiSASRec)."""
 
-    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler):
-        super().__init__(model, optimizer, seq_arrays, batch_size, neg_sampler)
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None):
+        super().__init__(model, optimizer, seq_arrays, batch_size, neg_sampler, mesh)
         self.time_matrix = torch.as_tensor(seq_arrays["time_matrix"], dtype=torch.long, device=self.device)
 
     def batch(self, rows, users, neg0):
@@ -407,16 +396,18 @@ class PermutationEpochTrainer:
     ``run(generator)`` forms the epoch's order (and a subclass's per-batch
     draws) and trains on it; ``run_batches(order, *draws, generator=None)``
     trains on a given (num_batches, B) order and (num_batches, B, ...)
-    draws. Both return the mean batch loss as a 0-d device tensor."""
+    draws. Both return the mean batch loss as a 0-d device tensor. Each step
+    goes through a ``DataParallelStep`` on ``mesh`` (None: one device)."""
 
-    def __init__(self, model, optimizer, n, batch_size, what):
+    def __init__(self, model, optimizer, n, batch_size, what, mesh=None):
         self.model = model
-        self.optimizer = optimizer
+        self.dp = DataParallelStep(model, optimizer, mesh)
+        self.optimizer = self.dp.optimizer
         self.device = next(model.parameters()).device
         self.n = int(n)
         if self.n == 0:
             raise ValueError(f"empty training set for {what}")
-        self.batch_size = min(int(batch_size), self.n)
+        self.batch_size = mesh_round_batch(min(int(batch_size), self.n), mesh)
         self.num_batches = -(-self.n // self.batch_size)
         self.padded_size = self.num_batches * self.batch_size
 
@@ -434,11 +425,7 @@ class PermutationEpochTrainer:
         draws = [torch.as_tensor(d, dtype=torch.long, device=self.device) for d in draws]
         total = torch.zeros((), device=self.device)
         for b in range(order.shape[0]):
-            self.optimizer.zero_grad(set_to_none=True)
-            loss = self.model.loss(self.batch(order[b], *(d[b] for d in draws)), generator)
-            loss.backward()
-            self.optimizer.step()
-            total += loss.detach()
+            total += self.dp(self.batch(order[b], *(d[b] for d in draws)), generator)
         return total / order.shape[0]
 
     def batch(self, order, *draws):
@@ -450,10 +437,10 @@ class PrefixEpochTrainer(PermutationEpochTrainer):
     .prefix_target_arrays``), a batch {"seq", "target"}: the counterpart of
     ``make_prefix_epoch_fn`` (NARM)."""
 
-    def __init__(self, model, optimizer, arrays, batch_size):
+    def __init__(self, model, optimizer, arrays, batch_size, mesh=None):
         self.seq = torch.as_tensor(arrays["seq"], dtype=torch.long, device=next(model.parameters()).device)
         self.target = torch.as_tensor(arrays["target"], dtype=torch.long, device=self.seq.device)
-        super().__init__(model, optimizer, self.seq.shape[0], batch_size, "prefix/target examples")
+        super().__init__(model, optimizer, self.seq.shape[0], batch_size, "prefix/target examples", mesh)
 
     def batch(self, order):
         return {"seq": self.seq[order], "target": self.target[order]}
@@ -464,9 +451,9 @@ class UserRowEpochTrainer(PermutationEpochTrainer):
     {"rows", "users"}: the counterpart of ``make_userrow_epoch_fn``
     (VAECF)."""
 
-    def __init__(self, model, optimizer, user_rows, batch_size):
+    def __init__(self, model, optimizer, user_rows, batch_size, mesh=None):
         self.rows = torch.as_tensor(user_rows, dtype=torch.float32, device=next(model.parameters()).device)
-        super().__init__(model, optimizer, self.rows.shape[0], batch_size, "user rows")
+        super().__init__(model, optimizer, self.rows.shape[0], batch_size, "user rows", mesh)
 
     def batch(self, order):
         return {"rows": self.rows[order], "users": order}
@@ -483,11 +470,11 @@ class TripleEpochTrainer(PermutationEpochTrainer):
     ``alias_tables``), by Walker's alias method."""
 
     def __init__(self, model, optimizer, triples, batch_size, n_users, n_items, n_neg, user_alias=None,
-                 item_alias=None):
+                 item_alias=None, mesh=None):
         device = next(model.parameters()).device
         self.triples = {key: torch.as_tensor(values, dtype=torch.long, device=device)
                         for key, values in triples.items()}
-        super().__init__(model, optimizer, self.triples["users"].shape[0], batch_size, "basket triples")
+        super().__init__(model, optimizer, self.triples["users"].shape[0], batch_size, "basket triples", mesh)
         self.n_users, self.n_items, self.n_neg = int(n_users), int(n_items), int(n_neg)
         self.user_alias, self.item_alias = user_alias, item_alias
 
@@ -559,7 +546,9 @@ class TrainEngine:
     "data") trains on a mesh of ``mesh_devices``: by default every CUDA device,
     ``device`` first, and too few raise. A mesh whose shards repeat a device
     exists only when ``mesh_devices`` names it so (``["cuda:0"] * 4``,
-    ``["cpu"] * 4``).
+    ``["cpu"] * 4``). The per-epoch evaluators score on the mesh's data
+    shards; the final ``test()`` on one device. A resumed run is placed on
+    the mesh again.
 
     ``system.profile`` writes a ``torch.profiler`` trace (host, and the card
     where the run is on one) of epochs 0-1 to ``<root_dir>/<run_dir>/
@@ -626,12 +615,9 @@ class TrainEngine:
                 print(f"[warn] sparse_optim requested but batch_kind={kind} has no row protocol; "
                       "using the dense path")
         self.sharded = self.sparse_optim and self.mesh is not None
-        if self.mesh is not None and self.mesh.size > 1 and not self.sharded:
-            raise NotImplementedError(
-                f"system.mesh {self.mesh.shape} on the dense path (model {model_cfg.get('model')}, batch kind "
-                f"{kind}, sparse_optim {sparse_req!r}): the port trains on a mesh through the row-sharded sparse "
-                "trainer only; the dense data-parallel path is ROADMAP.md, section 1 item 8"
-            )
+        # The dense trainers' mesh (parallel/data_parallel.py): data shards,
+        # and tables row-sharded by default_param_rule on a model axis.
+        mesh = None if self.sharded else self.mesh
         neg_sampler = make_negative_sampler(data, model_cfg.get("neg_sampler", "auto"), self.device)
         batch_size = int(model_cfg.get("batch_size", 256))
         if self.sharded:
@@ -662,59 +648,67 @@ class TrainEngine:
                 row_update=model_cfg.get("row_update", "auto"),
             )
         elif kind == "sequence":
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
             self.epoch_fn = SequenceEpochTrainer(
-                model, self.optimizer, data.train_seq_arrays(model.maxlen),
-                int(model_cfg.get("batch_size", 128)), neg_sampler,
+                model, make_optimizer(model_cfg, model.parameters()), data.train_seq_arrays(model.maxlen),
+                int(model_cfg.get("batch_size", 128)), neg_sampler, mesh,
             )
         elif kind == "sequence_time":
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
             self.epoch_fn = SequenceTimeEpochTrainer(
-                model, self.optimizer, data.tisasrec_arrays(model.maxlen, model.time_span),
-                int(model_cfg.get("batch_size", 128)), neg_sampler,
+                model, make_optimizer(model_cfg, model.parameters()),
+                data.tisasrec_arrays(model.maxlen, model.time_span), int(model_cfg.get("batch_size", 128)),
+                neg_sampler, mesh,
             )
         elif kind == "prefix":
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
             self.epoch_fn = PrefixEpochTrainer(
-                model, self.optimizer, data.prefix_target_arrays(int(model_cfg.get("maxlen", 19))),
-                int(model_cfg.get("batch_size", 128)),
+                model, make_optimizer(model_cfg, model.parameters()),
+                data.prefix_target_arrays(int(model_cfg.get("maxlen", 19))), int(model_cfg.get("batch_size", 128)),
+                mesh,
             )
         elif kind == "userrow":
             rows = model.artifacts.get("user_rows")
             if rows is None:
                 rows = (np.asarray(data.user_item_csr().todense()) > 0).astype(np.float32)
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
-            self.epoch_fn = UserRowEpochTrainer(model, self.optimizer, rows, int(model_cfg.get("batch_size", 256)))
+            self.epoch_fn = UserRowEpochTrainer(model, make_optimizer(model_cfg, model.parameters()), rows,
+                                                int(model_cfg.get("batch_size", 256)), mesh)
         elif kind == "triple":
             # The JAX engine draws its triples unseeded; here the run's seed
             # draws them, so a seed repeats bit for bit. Items' negatives
             # follow their train frequencies, users' only with
             # user_neg_weighted (weighting both collapses training).
-            self.optimizer = make_optimizer(model_cfg, model.parameters())
             triples = data.sample_triples(int(model_cfg.get("n_sample", 100_000)),
                                           time_step=int(model_cfg.get("time_step", 0)), seed=self.seed)
             self.epoch_fn = TripleEpochTrainer(
-                model, self.optimizer, triples, batch_size, data.n_users, data.n_items,
-                int(model_cfg.get("n_neg", 5)),
+                model, make_optimizer(model_cfg, model.parameters()), triples, batch_size, data.n_users,
+                data.n_items, int(model_cfg.get("n_neg", 5)),
                 user_alias=(alias_tables(data.train[DEFAULT_USER_COL], data.n_users, self.device)
                             if model_cfg.get("user_neg_weighted", False) else None),
-                item_alias=alias_tables(data.train[DEFAULT_ITEM_COL], data.n_items, self.device),
+                item_alias=alias_tables(data.train[DEFAULT_ITEM_COL], data.n_items, self.device), mesh=mesh,
             )
-        elif kind == "none":  # the neighbourhood models: nothing to train
+        elif kind == "none":  # the neighbourhood models: nothing to train, the evaluators sharded
             self.optimizer = make_optimizer(model_cfg, model.parameters())
             self.epoch_fn = None
         else:  # a parameter without requires_grad (BUIR's target) moves by post_update alone
-            self.optimizer = make_optimizer(model_cfg, [p for p in model.parameters() if p.requires_grad])
             num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))
-            self.epoch_fn = make_epoch_fn(model, self.optimizer, data.train_arrays(), batch_size, neg_sampler,
-                                          num_neg)
+            self.epoch_fn = make_epoch_fn(model, make_optimizer(model_cfg, [p for p in model.parameters()
+                                                                            if p.requires_grad]),
+                                          data.train_arrays(), batch_size, neg_sampler, num_neg, mesh)
+        if self.epoch_fn is not None and not self.sparse_optim:
+            self.optimizer = self.epoch_fn.optimizer  # over the mesh's table shards where it has any
         metrics = tuple(sys_cfg.get("metrics", ["ndcg", "precision", "recall", "map"]))
         ks = tuple(sys_cfg.get("k", [5, 10, 20]))
+        # As in the JAX package, the per-epoch evaluators score on the mesh,
+        # the final test() on one device. Both score on one set of replicas:
+        # the data-parallel step's where it keeps them.
+        dp = getattr(self.epoch_fn, "dp", None)
+        replicas = dp.replicas if dp is not None and dp.mode == "data" else (
+            None if self.mesh is None else Replicas(model, [row[0] for row in self.mesh.devices]))
         self.valid_evaluator = (
-            RankingEvaluator(model, valid_candidates, metrics, ks) if valid_candidates is not None else None
+            RankingEvaluator(model, valid_candidates, metrics, ks, mesh=self.mesh, replicas=replicas)
+            if valid_candidates is not None else None
         )
         self.test_evaluator = (
-            RankingEvaluator(model, test_candidates, metrics, ks) if test_candidates is not None else None
+            RankingEvaluator(model, test_candidates, metrics, ks, mesh=self.mesh, replicas=replicas)
+            if test_candidates is not None else None
         )
         self.bookkeeper = EvalBookkeeper(
             valid_metric=sys_cfg.get("valid_metric", "ndcg"),
@@ -749,6 +743,8 @@ class TrainEngine:
             self.epoch_seconds.append(time.perf_counter() - t0)
             if self.sharded:
                 self._after_sharded_epoch()
+            elif self.mesh is not None:
+                self.epoch_fn.dp.assemble()
             valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
             test_result = self.test_evaluator.evaluate() if self.test_evaluator else {}
             improved = self.bookkeeper.update(epoch, valid_result, test_result) if valid_result else False
@@ -829,6 +825,46 @@ class TrainEngine:
 
     # -- checkpoints ----------------------------------------------------------------
 
+    def _param_states(self):
+        """{parameter name: its optimizer state, or None} for the parameters
+        the optimizer trains, whole-table states where a mesh shards them."""
+        if getattr(self.epoch_fn, "dp", None) is not None:
+            return self.epoch_fn.dp.named_states()
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        return {names[id(p)]: self.optimizer.state.get(p) or None
+                for group in self.optimizer.param_groups for p in group["params"]}
+
+    def _load_param_states(self, states):
+        """Set the optimizer's state from ``{name: state or None}``: through
+        the mesh step where there is one, on every replica's optimizer of
+        the row-sharded sparse trainer."""
+        if getattr(self.epoch_fn, "dp", None) is not None:
+            self.epoch_fn.dp.load_named_states(states)
+            return
+        optimizers = [opt for row in self.epoch_fn.dense_optimizers for opt in row] if self.sharded \
+            else [self.optimizer]
+        for optimizer in optimizers:
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            for p, name in zip(params, self._optimized_names(optimizer)):
+                state = states.get(name)
+                if state is None:
+                    optimizer.state.pop(p, None)
+                else:
+                    # a copy for each optimizer: the sparse trainer's replicas step their own
+                    optimizer.state[p] = {k: v.clone() if k == "step" else v.to(p.device, copy=True).reshape(p.shape)
+                                          for k, v in state.items()}
+
+    def _optimized_names(self, optimizer):
+        """The model's names of an optimizer's parameters, in its order: the
+        row-sharded sparse trainer's replicas hold copies of the model's
+        dense parameters, named as replica (0, 0) names them."""
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        if self.sharded:
+            for row in self.epoch_fn.dense:
+                for replica in row:
+                    names.update({id(p): name for name, p in replica.items()})
+        return [names[id(p)] for group in optimizer.param_groups for p in group["params"]]
+
     def _opt_state_tree(self):
         """The optimizer state in the layout of the JAX package's dense optax
         state for this config ({"0": {"count", "mu", "nu"}, "1": {}} for adam,
@@ -839,23 +875,23 @@ class TrainEngine:
         has none), nested like the
         params tree (``blocks.0.attn.wq`` -> {"blocks": {"0": {"attn":
         {"wq": ...}}}}; MF's names are flat), so the JAX package's cold
-        ``load`` finds the structure it expects."""
+        ``load`` finds the structure it expects. On a mesh the tables and
+        their moments are whole and unpadded (the row-sharded sparse
+        trainer's padded, as the JAX package's)."""
         optimizer = self.config.model.get("optimizer", "adam")
+        states = self._param_states()
         if optimizer == "rmsprop":  # a parameter no step has reached keeps optax's initial 0
-            nu = {name: self.optimizer.state[p]["nu"].cpu().numpy() if self.optimizer.state.get(p)
+            nu = {name: states[name]["nu"].cpu().numpy() if states.get(name)
                   else np.zeros(tuple(p.shape), np.float32) for name, p in self.model.named_parameters()}
             return {"0": {"nu": nest_dotted(nu)}, "1": {}, "2": {}}
         if optimizer != "adam":
             return {"0": {}, "1": {}}
-        names = {id(p): name for name, p in self.model.named_parameters()}
         mu, nu, count = {}, {}, 0
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                state = self.optimizer.state.get(p)
-                if state:
-                    mu[names[id(p)]] = state["exp_avg"].detach().cpu().numpy()
-                    nu[names[id(p)]] = state["exp_avg_sq"].detach().cpu().numpy()
-                    count = int(state["step"])
+        for name, state in states.items():
+            if state:
+                mu[name] = state["exp_avg"].detach().cpu().numpy()
+                nu[name] = state["exp_avg_sq"].detach().cpu().numpy()
+                count = int(state["step"])
         if self.sparse_optim:
             for name, (m, v) in self.epoch_fn.state["moments"].items():
                 mu[name], nu[name] = m.cpu().numpy(), v.cpu().numpy()
@@ -870,48 +906,34 @@ class TrainEngine:
     def _restore_opt_state(self, tree):
         """Load an optimizer state tree of ``_opt_state_tree``'s layout (the
         JAX package's dense optax state) into the optimizer and, for the
-        lazy-Adam trainer, its table moments and step, in place. Adam's
+        lazy-Adam trainers, their table moments and step, in place. Adam's
         count becomes every parameter's step; a count of 0 leaves the
         optimizer fresh, as optax's initial state is."""
         optimizer = self.config.model.get("optimizer", "adam")
         head = tree["0"]
-        names = {id(p): name for name, p in self.model.named_parameters()}
+        names = list(self._param_states())
         if optimizer == "rmsprop":
             nu = flatten_params(head["nu"])
-            for group in self.optimizer.param_groups:
-                for p in group["params"]:
-                    self.optimizer.state[p] = {"nu": nu[names[id(p)]].to(p.device).reshape(p.shape)}
+            self._load_param_states({name: {"nu": nu[name]} for name in names})
             return
         if optimizer != "adam":
             return
         count = int(head["count"])
         mu, nu = flatten_params(head["mu"]), flatten_params(head["nu"])
         if self.sparse_optim:
-            self.epoch_fn.state["step"] = count
-            for name, (m, v) in self.epoch_fn.state["moments"].items():
-                m.copy_(mu[name])
-                v.copy_(nu[name])
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if not count:
-                    self.optimizer.state.pop(p, None)
-                    continue
-                name = names[id(p)]
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(count), dtype=torch.float32),
-                    "exp_avg": mu[name].to(p.device).reshape(p.shape),
-                    "exp_avg_sq": nu[name].to(p.device).reshape(p.shape),
-                }
+            moments = {name: (mu[name], nu[name]) for name in self.model.row_tables()}
+            self.epoch_fn.load_state(moments, count)
+        self._load_param_states({name: {"step": torch.tensor(float(count), dtype=torch.float32),
+                                        "exp_avg": mu[name], "exp_avg_sq": nu[name]} if count else None
+                                 for name in names})
 
     def resume_checkpoint(self, ckpt_dir=None):
         """Restore the parameters, the optimizer state and the generator from
         a checkpoint directory (this run's best one by default), the port's
-        or the JAX package's. On a mesh it raises: sharded resume is
-        ROADMAP.md, section 1 item 8."""
-        if self.sharded:
-            raise NotImplementedError(
-                "resume on a mesh: sharded resume (JAX _replace_on_mesh) is ROADMAP.md, section 1 item 8"
-            )
+        or the JAX package's. On a mesh the restored tables and moments are
+        placed on it again, as the JAX package's ``_replace_on_mesh`` places
+        them: the row-sharded sparse trainer's padded shards, the dense
+        mesh's row shards and replicas."""
         ckpt_dir = ckpt_dir or self.checkpoint_dir
         meta = load_metadata(ckpt_dir)
         if (meta.get("n_users"), meta.get("n_items")) != (self.data.n_users, self.data.n_items):
@@ -920,6 +942,10 @@ class TrainEngine:
         raw = load_raw_checkpoint(ckpt_dir, backend=self.config.system.get("checkpoint_backend"))
         with torch.no_grad():
             self.model.load_trimmed(flatten_params(raw["params"]))
+            if self.sharded:
+                self.epoch_fn.place()
+            elif getattr(self.epoch_fn, "dp", None) is not None:
+                self.epoch_fn.dp.place()
             self._restore_opt_state(raw["opt_state"])
         state = raw.get("torch_rng")
         if state is not None and np.asarray(state).size == self.generator.get_state().numel():

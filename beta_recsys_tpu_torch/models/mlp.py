@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops import activations
 from ..ops.attention import inverted_dropout
 from .base import RecModel
 from .losses import bce_loss
@@ -66,7 +67,7 @@ def run_tower(layers, vector, dropout, generator):
     """[dropout] -> Linear -> ReLU for each block."""
     for layer in layers:
         vector = inverted_dropout(generator, vector, dropout)
-        vector = torch.relu(vector @ layer["w"] + layer["b"])
+        vector = activations.relu(vector @ layer["w"] + layer["b"])
     return vector
 
 

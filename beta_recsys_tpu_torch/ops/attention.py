@@ -5,13 +5,13 @@ layout, (in, out), so a projection is ``x @ w``. Dropout follows the JAX
 rule: no generator, no dropout. With a ``torch.Generator`` each dropout
 draws from it in call order; ``dropout_mask`` is the one place a mask is
 drawn outside the attention core, whose mask is the Philox mask of
-``kernels/philox.py`` keyed on a seed drawn from the same generator.
-``relu_keep`` is the one place the FFN's ReLU decides which entries pass,
-so a check can hand one device's decisions to another, as it hands masks.
+``kernels/philox.py`` keyed on a seed drawn from the same generator. The
+FFN's ReLU is ``activations.relu``.
 """
 
 import torch
 
+from . import activations
 from .kernels.flash_attention import FlashCausalAttention, flash_causal_attention_reference
 
 
@@ -36,17 +36,17 @@ def inverted_dropout(generator, x, rate):
     return torch.where(keep, x / (1 - rate), 0.0)
 
 
-def relu_keep(z):
-    """Bool: the entries of ``z`` that ReLU passes (z > 0)."""
-    return z > 0
+def dropout_seed(generator, device):
+    """The attention dropout mask's seed, a (1,) int64 tensor drawn from
+    ``generator`` on ``device``: it stays there, so drawing it waits on
+    nothing."""
+    return torch.randint(0, 2**62, (1,), generator=generator, device=device)
 
 
 def pointwise_ffn(x, p, dropout_rate=0.0, generator=None):
     """Conv1d(k=1) -> ReLU -> [dropout] -> Conv1d(k=1) -> [dropout] with
-    residual. The ReLU is ``where(relu_keep(z), z, 0)``: the same values and
-    gradient as ``torch.relu``."""
-    z = x @ p["w1"] + p["b1"]
-    h = inverted_dropout(generator, torch.where(relu_keep(z), z, 0.0), dropout_rate)
+    residual."""
+    h = inverted_dropout(generator, activations.relu(x @ p["w1"] + p["b1"]), dropout_rate)
     h = inverted_dropout(generator, h @ p["w2"] + p["b2"], dropout_rate)
     return x + h
 
@@ -64,8 +64,7 @@ def causal_mha(q, k, v, n_heads, wq, wk, wv, wo, dropout_rate=0.0, generator=Non
     B, T, D = q.shape
     dh = D // n_heads
     rate = dropout_rate if generator is not None else 0.0
-    # The mask's seed stays on the device: drawing it waits on nothing.
-    seed = torch.randint(0, 2**62, (1,), generator=generator, device=q.device) if rate > 0 else None
+    seed = dropout_seed(generator, q.device) if rate > 0 else None
 
     def split_heads(x, w):
         h = (x @ w).reshape(B, T, n_heads, dh)

@@ -51,10 +51,13 @@ def ring_allgather(blocks):
     of each equal to ``blocks[s]`` (on one card, views of one (n, n, C, d)
     tensor). Differentiable. Counts the calls that reach the kernels in
     ``ring_allgather.calls`` and their launches (one per distinct device of
-    a call) in ``ring_allgather.launches``."""
+    a call) in ``ring_allgather.launches``, and reports each call to the
+    collectives' recorder (``parallel/collectives.py``) as an all-gather of
+    n blocks, its backward as a reduce-scatter of one."""
     blocks = list(blocks)
     if len(blocks) == 1:
         return [blocks[0][None]]
+    _record("all_gather", len(blocks) * blocks[0].numel() * blocks[0].element_size())
     if torch.is_grad_enabled() and any(b.requires_grad for b in blocks):
         return list(_RingAllGather.apply(*blocks))
     return _forward(blocks)
@@ -62,6 +65,12 @@ def ring_allgather(blocks):
 
 ring_allgather.calls = 0
 ring_allgather.launches = 0
+
+
+def _record(kind, nbytes):
+    from ...parallel.collectives import record  # imported here: the parallel package imports this module
+
+    record(kind, nbytes)
 
 
 def _forward(blocks):
@@ -82,6 +91,8 @@ class _RingAllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        first = next(g for g in grads if g is not None)
+        _record("reduce_scatter", first[0].numel() * first.element_size())
         out = []
         for r, device in enumerate(ctx.devices):
             total = None

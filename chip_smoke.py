@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (beta_recsys_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only | --profile PHASE]
+    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only | --mesh-only | --profile PHASE]
 
 Phases, each printed with the seconds elapsed:
   0. environment: the card (nvidia-smi), torch and CUDA versions, TF32 flags;
@@ -20,8 +20,8 @@ Phases, each printed with the seconds elapsed:
      .train(data), capped at MF_SPARSE_EPOCHS: 1 fused_rowadam launch a
      step, best valid and test ndcg@10 inside the JAX package's band at
      that cap; then test() and recommend();
-  4. train MF with the dense trainer (mf_default.json as it is): test
-     ndcg@10 inside the JAX package's band;
+  4. train MF with the dense trainer (mf_default.json, capped at
+     MF_DENSE_EPOCHS): test ndcg@10 inside the JAX package's band;
   5. serve the JAX-trained MF checkpoint: test() gives the JAX metrics;
   6. serve the trained SASRec checkpoint in parity_runs/: load -> test() ->
      predict() -> recommend(); the test metrics must reproduce the JAX
@@ -29,9 +29,10 @@ Phases, each printed with the seconds elapsed:
   7. serve configs/sasrec_default.json (maxlen 200) with weights from the
      port's initializer over synthetic data shaped like MovieLens-1M;
   8. train SASRec at the trained checkpoint's config through SASRec(cfg)
-     .train(data) on the structured split, twice: the flash backward once per
-     block a step, best valid and test ndcg@10 inside the JAX package's band,
-     the two runs' parameters bit-identical; then test(), predict() and
+     .train(data) on the structured split to early stop: the flash backward
+     once per block a step, best valid and test ndcg@10 inside the JAX
+     package's band; its first SASREC_REPEAT_EPOCHS epochs twice more, the
+     two runs' parameters bit-identical; then test(), predict() and
      recommend() against the plain path, and one profiled epoch;
   9. 20 training steps at configs/sasrec_default.json's shapes (maxlen 200,
      lr 0.5) over the MovieLens-1M-shaped data: finite loss, exact launches;
@@ -62,11 +63,12 @@ Phases, each printed with the seconds elapsed:
      split through XRecommender(cfg).train(data), seed 0, capped at
      NCF_EPOCHS: best valid and test ndcg@10 inside the JAX package's
      ten-seed bands at that cap,
-     NCF's first 2 epochs twice, bit for bit; examples/s and a profiled
-     window each (an epoch's batch forming and 20 steps);
+     NCF's first epoch twice, bit for bit; examples/s and a profiled
+     window each (an epoch's batch forming and 10 steps);
  19. NCF warm-started from phase 18's MLP and a GMF trained as in phase 18
-     at NCF's width (emb 8; the shipped GMF is 64 wide) for 10 epochs, for
-     5 epochs (neither holds a band): NCF starts from
+     at NCF's width (emb 8; the shipped GMF is 64 wide) for
+     GMF_PRETRAIN_EPOCHS epochs, for NCF_WARM_EPOCHS epochs (neither holds a
+     band): NCF starts from
      their tables and layers bit for bit; its metrics are printed. Phases
      17-19 launch none of the kernels (every count read 0 around each);
  20. serve the JAX-trained seed-0 LightGCN and NGCF checkpoints: load ->
@@ -78,12 +80,12 @@ Phases, each printed with the seconds elapsed:
  21. train LightGCN at its shipped config (edge keep 0.6, batch 1,024, Adam
      at lr 2.5e-4) through LightGCN(cfg).train(data), seed 0, to early stop:
      best valid and test ndcg@10 inside the JAX package's ten-seed bands;
-     its first 2 epochs twice, bit for bit; positives/s;
+     its first epoch twice, bit for bit; positives/s;
  22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
      Phases 20-22 launch none of the kernels and are profiled
      (``--profile graph-models``: a test() and a recommend() of each
-     checkpoint; an epoch's batch forming and 10 steps of each model after
-     5 to warm up), printing a WARNING where the profiler recorded no CUDA
+     checkpoint; an epoch's batch forming and 5 steps of each model after
+     2 to warm up), printing a WARNING where the profiler recorded no CUDA
      events;
  23. serve the JAX-trained seed-0 UltraGCN checkpoint: load -> test() ->
      predict() -> recommend(k=10); test() reproduces the JAX package's
@@ -94,7 +96,7 @@ Phases, each printed with the seconds elapsed:
      (16 candidates mixed into one negative, edge and message dropout, 5
      epochs) at their shipped configs through XRecommender(cfg).train(data),
      seed 0: best valid and test ndcg@10 inside the JAX package's ten-seed
-     bands at the same caps; UltraGCN's first 2 epochs twice, bit for bit;
+     bands at the same caps; UltraGCN's first epoch twice, bit for bit;
  25. train PairwiseGMF (5 epochs), then CMN (rmsprop, 3 epochs)
      warm-started from its memories, at their shipped configs: both inside
      the JAX bands at those caps (each JAX seed's CMN starts from that
@@ -104,8 +106,8 @@ Phases, each printed with the seconds elapsed:
      for bit, and the peak device memory of its test() (scored in blocks of
      pairs). Phases 23-25 launch none of the kernels and are profiled
      (``--profile capped-models``: UltraGCN's test() and
-     recommend(), an epoch's batch forming and 10 steps of each model after
-     5 to warm up, and CMN's test()); positives/s of every training;
+     recommend(), an epoch's batch forming and 5 steps of each model after
+     2 to warm up, and CMN's test()); positives/s of every training;
  26. SimGCL and SGL (both_side InfoNCE over two views of edge dropout a
      step, drawn on the device), 27. BUIR (online and target encoders, the
      target moved by its ``post_update`` EMA after every step) and LCFN
@@ -120,11 +122,11 @@ Phases, each printed with the seconds elapsed:
      same batches and draws (1e-5: the loss, every parameter but Adam's
      eps-set elements, Adam's moments) and the dense A's built a step;
      BUIR's target after one step equal to m * initial + (1 - m) * online
-     (1e-7), its predict() raising as the JAX package's; SGL's and BUIR's first 2 epochs twice, bit for
+     (1e-7), its predict() raising as the JAX package's; SGL's and BUIR's first epoch twice, bit for
      bit; LCFN's P and Q from a second eigendecomposition on a fresh data
      object bit for bit. Phases 26-27 launch none of the kernels and are
      profiled (``--profile ssl-models``: an epoch's
-     batch forming and 10 steps of each model after 5 to warm up);
+     batch forming and 5 steps of each model after 2 to warm up);
      positives/s of every training;
  28. TiSASRec at its shipped config (emb 64, 2 blocks, maxlen 50, time_span
      256, dropout 0.2, batch 128) through TiSASRec(cfg).train(data) on the
@@ -168,7 +170,7 @@ Phases, each printed with the seconds elapsed:
      against the CPU's).
      Phases 28-33 launch none of the kernels and are profiled
      (``--profile seq-models grocery-models``: an epoch's batch forming
-     and 10 steps of each model after 5 to warm up, 5 steps for phases
+     and 5 steps of each model after 2 to warm up, 3 steps for phases
      32-33; the Triple2vec checkpoint's test() and recommend(), each KNN's
      test()); triples/s.
      The profiles of phases 20-33 run in one child process after phase 33
@@ -197,19 +199,35 @@ Phases, each printed with the seconds elapsed:
      each route beside its bound, the peak device memory, and the top-k
      route against a full stable sort;
  36. full-state resume: MF with lazy Adam (fused_rowadam, one launch a
-     step) and with the dense trainer, 2 epochs and then resume_training
-     from last/ for 2 more, equal to 4 straight epochs bit for bit
+     step) and with the dense trainer, 1 epoch (RESUME_EPOCHS) and then
+     resume_training from last/ for 1 more, equal to 2 straight epochs bit
+     for bit
      (parameters, moments, step, generator, bookkeeper); the JAX MF run's
      last/ (epoch 33, 20 epochs without a gain) resumed with the file's
      state, stopping after one epoch as the JAX engine does;
- 37. a JSON line of every kernel with its launches on each path, counted
+ 37. the dense mesh path on ["cuda:0"] * 4 (and again on cuda:0-3 with 4
+     cards): SASRec at the checkpoint's config through SASRec(cfg,
+     mesh_devices).train(data) on a (4, 1) mesh, 2 epochs at dropout 0
+     (each data shard's flash forward and backward; trained twice, bit for
+     bit), within MESH_TOL of the same (4, 1) run on the CPU on the
+     same batches, one all-reduce a step of the parameters' bytes, its
+     first 5 steps at the shipped dropout equal to the CPU's with the same
+     draws (1e-5), and 2 epochs on a (2, 2) mesh against the one-device
+     trainer; MF on the dense path on a (2, 2) mesh (item_emb row-sharded,
+     the ring all-gather once a step) against the one-device dense
+     trainer; NCF on a (4, 1) mesh against the CPU's; the mesh's ranking
+     and full-catalog evaluators against one device's (1e-6) for MF and
+     SASRec; 1 + 1 resumed epochs equal to 2 straight, bit for bit, on the
+     (1, 4) ring-lookup sparse mesh and the (2, 2) dense mesh;
+ 38. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
-drives no path); with --profile <phase> ..., only those phases' profiles
-and no result line. Imports nothing of JAX or of the JAX package.
+drives no path); with --mesh-only, the four kernels built and phase 37
+alone, with no result line; with --profile <phase> ..., only those phases'
+profiles and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -238,7 +256,11 @@ from beta_recsys_tpu_torch.convert import (  # noqa: E402
     sasrec_params_from_jax,
 )
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata, load_raw_checkpoint  # noqa: E402
-from beta_recsys_tpu_torch.core.eval_engine import FullCatalogEvaluator, TopKRetrievalEvaluator  # noqa: E402
+from beta_recsys_tpu_torch.core.eval_engine import (  # noqa: E402
+    FullCatalogEvaluator,
+    RankingEvaluator,
+    TopKRetrievalEvaluator,
+)
 from beta_recsys_tpu_torch.core.recommender import recommend_route  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
     ShardedSparseEpochTrainer,
@@ -272,6 +294,7 @@ from beta_recsys_tpu_torch.models import simgcl as simgcl_model  # noqa: E402
 from beta_recsys_tpu_torch.models import vaecf as vaecf_model  # noqa: E402
 from beta_recsys_tpu_torch.models import vbcar as vbcar_model  # noqa: E402
 from beta_recsys_tpu_torch.ops import attention as port_attention  # noqa: E402
+from beta_recsys_tpu_torch.ops import activations as port_activations  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
     flash_causal_attention_bwd,
@@ -285,6 +308,7 @@ from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
     fused_rowadam,
     fused_rowadam_reference,
 )
+from beta_recsys_tpu_torch.parallel.collectives import recording  # noqa: E402
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
@@ -348,10 +372,14 @@ SPARSE_BAND = {"valid": (0.20631387680768967, 0.002780269790554314),
                "test": (0.1743064731359482, 0.0070542290529480465)}
 # Phase 3 runs MF_SPARSE_EPOCHS epochs (the JAX seeds' best epochs are 12-44
 # of 33-65 run to early stop), against the same seeds read at that cap.
-MF_SPARSE_EPOCHS = 30
-SPARSE_BAND_AT_CAP = {"valid": (0.2054387226700783, 0.003710978058973611),
-                      "test": (0.1731438159942627, 0.0056946881739343876)}
+MF_SPARSE_EPOCHS = 15
+SPARSE_BAND_AT_CAP = {"valid": (0.2006065234541893, 0.005027032735413935),
+                      "test": (0.1752294883131981, 0.0056038494808320315)}
 DENSE_BAND = {"test": (0.1893, 0.0097)}
+# Phase 4's dense trainer stops at MF_DENSE_EPOCHS: seed 0's run to early
+# stop had its best epoch at 14 of 35, so the capped run's best, and its
+# test(), are that run's, held to DENSE_BAND.
+MF_DENSE_EPOCHS = 15
 # (mean, std) of SASRec's best valid and test ndcg@10 over seeds 0-9 of the
 # JAX package's training at the trained checkpoint's config on the same
 # split: `JAX_PLATFORMS=cpu python port_tools/jax_sasrec_band.py` (sample
@@ -360,6 +388,7 @@ DENSE_BAND = {"test": (0.1893, 0.0097)}
 # 0.197396, 0.197077) fall outside mean +- 3 std of that band.
 SASREC_BAND = {"valid": (0.20811834037303925, 0.004043200216505683),
                "test": (0.1901898756623268, 0.00438203838237327)}
+SASREC_REPEAT_EPOCHS = 10  # phase 8: the first epochs of the training, run twice more, bit for bit
 # fused_rowadam against its plain version, as tests/test_rowadam_kernel.py
 # holds the JAX kernel: the same float32 operations, each rounded on its own
 # in both (max_abs_err 0 expected; the tolerance is the JAX kernel test's).
@@ -417,7 +446,7 @@ MESH_CAPACITY_FACTOR = 4.0
 MESH_TOL = (1e-4, 1e-3, 1e-2)
 ONE_CARD_MESH_EPOCHS = 1  # phases 13-14 on cuda:0 (the 4-card call's run 3 epochs)
 PROFILED_STEPS = 3  # sharded steps under torch.profiler (~2,500 device activities each)
-PROFILED_WINDOW = 20  # one-device training steps under torch.profiler
+PROFILED_WINDOW = 10  # one-device training steps under torch.profiler
 # The NCF family: each model's recommender, shipped config and JAX-trained
 # seed-0 checkpoint.
 NCF_FAMILY = {
@@ -434,20 +463,20 @@ EXPECTED_NCF_METRICS = {
 }
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
 # package's training at each shipped config on the structured split, read at
-# NCF_EPOCHS (the runs' best epochs are 4-25, early stop at 25-46; only
-# MLP's seed 5 is best after 20): `JAX_PLATFORMS=cpu python
-# port_tools/jax_ncf_band.py`. A port run must land within mean +- 3 std.
-NCF_EPOCHS = 20  # phase 18's trainings
+# NCF_EPOCHS (the runs' best epochs are 4-25, early stop at 25-46):
+# `JAX_PLATFORMS=cpu python port_tools/jax_ncf_band.py`. A port run must land
+# within mean +- 3 std.
+NCF_EPOCHS = 15  # phase 18's trainings
 NCF_BANDS = {
-    "GMF": {"valid": (0.14416029453277587, 0.0023161275649824075),
-            "test": (0.12286070138216018, 0.002249093758183809)},
-    "MLP": {"valid": (0.15575653612613677, 0.007594710824414818),
-            "test": (0.13141448348760604, 0.0032171887666182382)},
-    "NCF": {"valid": (0.15180849134922028, 0.004850082781757105),
-            "test": (0.12909825518727303, 0.005508611261360261)},
+    "GMF": {"valid": (0.14169272035360336, 0.0022578277715178275),
+            "test": (0.11973418816924095, 0.0018701097444924386)},
+    "MLP": {"valid": (0.15532318651676177, 0.007576780911933196),
+            "test": (0.13132473230361938, 0.003419553069412706)},
+    "NCF": {"valid": (0.1511957198381424, 0.004919920450754352),
+            "test": (0.12969834208488465, 0.0050988329860811865)},
 }
-GMF_PRETRAIN_EPOCHS = 10  # phase 19's GMF at NCF's width
-NCF_WARM_EPOCHS = 5  # phase 19's warm-started NeuMF
+GMF_PRETRAIN_EPOCHS = 5  # phase 19's GMF at NCF's width
+NCF_WARM_EPOCHS = 3  # phase 19's warm-started NeuMF
 # The graph models: each recommender, shipped config and JAX-trained seed-0
 # checkpoint.
 GRAPH_FAMILY = {
@@ -472,7 +501,7 @@ GRAPH_BANDS = {
 }
 SPARSE_ROUTE_TOL = 1e-5  # test() through the CSR route against the dense route's
 PREDICT_TOL = 1e-6  # served scores on the card against the port's on the CPU
-REPEAT_EPOCHS = 2  # NCF's, LightGCN's and UltraGCN's epochs trained twice, bit for bit
+REPEAT_EPOCHS = 1  # NCF's, LightGCN's and UltraGCN's epochs trained twice, bit for bit
 # The multineg models and the memory network: each recommender, shipped
 # config and the epochs its training runs (the cap its JAX band is read at).
 CAPPED_FAMILY = {
@@ -534,7 +563,7 @@ SSL_BANDS = {
 # Random ranking over a user's 101 candidates reads ndcg@10 ~0.045: a band
 # whose lower edge lies below this cannot fail an untrained model.
 UNTRAINED_NDCG = 0.06
-SSL_REPEAT_EPOCHS = 2  # SGL's and BUIR's epochs trained twice, bit for bit
+SSL_REPEAT_EPOCHS = 1  # SGL's and BUIR's epochs trained twice, bit for bit
 # Each model's first steps at the shipped width on the card against the same
 # steps through the port on the CPU (which tests/test_torch_train_ssl.py holds
 # to the JAX package), with the same weights, batches and draws: the check
@@ -611,7 +640,7 @@ GROCERY_BANDS = {
              "test": (0.2197718933224678, 0.00837311474182661)},
 }
 GROCERY_REPEAT_EPOCHS = 1  # each model's first epoch (196 steps) trained twice, bit for bit
-GROCERY_PROFILED_STEPS = 5  # steps profiled for each model of phases 32-33 (TVBR's ~970 activities a step)
+GROCERY_PROFILED_STEPS = 3  # steps profiled for each model of phases 32-33 (TVBR's ~970 activities a step)
 TRIPLE2VEC_CHECKPOINT = "Triple2vec_default_20260821_165054_qjaaht"
 # The JAX package's test() of the Triple2vec checkpoint (with the synthetic
 # baskets) and of UserKNN and ItemKNN at configs/userKNN_default.json and
@@ -678,7 +707,10 @@ RETRIEVAL_SCALE = {"n_users": 10_240, "n_items": 162_000, "emb_dim": 64, "k": 10
 RETRIEVAL_CPU_USERS = 256  # users whose exact ids are held against a full sort on the CPU
 RETRIEVAL_ITEM_BLOCK = 8192
 RECALL_TARGET = 0.95  # the JAX package's default recall_target for the bf16 scores
-RESUME_EPOCHS = 2  # phase 36: this many epochs, resumed for as many more, against twice as many straight
+RESUME_EPOCHS = 1  # phase 36: this many epochs, resumed for as many more, against twice as many straight
+DENSE_MESH_EPOCHS = 2  # phase 37's mesh runs held against their references
+SASREC_MESH_STEPS = 5  # phase 37: SASRec's steps at the shipped dropout on a (4, 1) mesh, card against the CPU
+MESH_EVAL_TOL = 1e-6  # phase 37: a mesh's evaluators against one device's
 
 T0 = time.perf_counter()
 
@@ -1200,7 +1232,7 @@ def mf_sparse_training(seed, root_dir):
 
 def mf_dense_training(seed, root_dir):
     """Phase 4: the dense trainer runs no fused_rowadam."""
-    rec, _, launches, res = train_mf("mf-dense", seed, root_dir)
+    rec, _, launches, res = train_mf("mf-dense", seed, root_dir, max_epoch=MF_DENSE_EPOCHS)
     if launches:
         fail(f"the dense trainer launched fused_rowadam {launches} times")
     log("mf-dense", in_band("test ndcg@10", res["ndcg@10"], DENSE_BAND["test"]))
@@ -1423,13 +1455,15 @@ def sasrec_config(seed, root_dir, **model):
     return load_config(CHECKPOINT).replace(system={"root_dir": root_dir, "seed": seed}, model=model)
 
 
-def train_sasrec(phase, seed, root_dir, data, **model):
-    """Train SASRec through SASRec(cfg).train(data); returns the recommender,
+def train_sasrec(phase, seed, root_dir, data, config=None, mesh_devices=None, **model):
+    """Train SASRec through SASRec(cfg, mesh_devices=...).train(data) (``config``,
+    else the checkpoint's with ``model`` over it); returns the recommender,
     the train result and the flash launches counted from 0 around train()
     alone: forward launches inside the epoch trainer's runs ("steps"), the
     other forward launches (the evaluations after each epoch, "eval") and
-    backward launches ("bwd"), each checked against what the path needs."""
-    rec = SASRec(sasrec_config(seed, root_dir, **model))
+    backward launches ("bwd"), each checked against what the path needs (on
+    a data axis of N, each of the N shards' steps and evaluations)."""
+    rec = SASRec(config or sasrec_config(seed, root_dir, **model), mesh_devices=mesh_devices)
     counts = {"steps": 0}
     run = SequenceEpochTrainer.run
 
@@ -1450,11 +1484,13 @@ def train_sasrec(phase, seed, root_dir, data, **model):
     counts["bwd"] = flash_causal_attention_bwd.launches
     engine, blocks = rec.engine, rec.model.num_blocks
     epochs = len(engine.bookkeeper.history)
+    n_data = engine.mesh.shape["data"] if engine.mesh is not None else 1
+    shards = n_data if engine.epoch_fn.dp.mode == "data" else 1  # the data shards' own steps
     steps = epochs * engine.epoch_fn.num_batches
     evaluators = (engine.valid_evaluator is not None) + (engine.test_evaluator is not None)
-    check_launches("flash backward", phase, counts["bwd"], blocks * steps)
-    check_launches("flash forward in training steps", phase, counts["steps"], blocks * steps)
-    check_launches("flash forward in evaluations", phase, counts["eval"], blocks * evaluators * epochs)
+    check_launches("flash backward", phase, counts["bwd"], blocks * shards * steps)
+    check_launches("flash forward in training steps", phase, counts["steps"], blocks * shards * steps)
+    check_launches("flash forward in evaluations", phase, counts["eval"], blocks * n_data * evaluators * epochs)
     rates = [engine.epoch_fn.num_batches * engine.epoch_fn.batch_size / s for s in engine.epoch_seconds]
     log(phase, f"{epochs} epochs of {engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size} sequences "
         f"(maxlen {rec.model.maxlen}, dh {rec.model.emb_dim // rec.model.num_heads}), best epoch "
@@ -1494,26 +1530,41 @@ def check_sasrec_serving(phase, rec, data, ckpt_dir):
     return res
 
 
+def same_sasrec_runs(phase, runs):
+    """Fail unless two (recommender, train result) runs of SASRec left the
+    same best and last parameters bit for bit, at the same best epoch and
+    valid metric."""
+    best = [rec.model.state_dict() for rec, _ in runs]
+    last = [sasrec_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
+            for _, r in runs]
+    same = (all(torch.equal(best[0][name], best[1][name]) for name in best[0])
+            and all(torch.equal(last[0][name], last[1][name]) for name in last[0])
+            and (runs[0][1]["best_epoch"], runs[0][1]["valid_metric"])
+            == (runs[1][1]["best_epoch"], runs[1][1]["valid_metric"]))
+    if not same:
+        fail(f"{phase}: two trainings of one seed gave different parameters")
+
+
 def sasrec_training(seed, root_dir):
-    """Phase 8, the slice's main path. Returns the flash launches of the two
-    trainings ({"sasrec_train": counts, "sasrec_train_again": counts})."""
+    """Phase 8, the slice's main path: a training to early stop, then its
+    first SASREC_REPEAT_EPOCHS epochs twice, bit for bit. Returns the flash
+    launches ({"sasrec_train": counts, "sasrec_train_again": the repeats'})."""
     data = SequentialData(load_split_data(SPLIT, n_test=1))
     rec, result, counts = train_sasrec("sasrec-train", seed, root_dir, data)
     res = check_sasrec_serving("sasrec-train", rec, data, result["model_save_dir"])
     log("sasrec-train", in_band("best valid ndcg@10", result["valid_metric"], SASREC_BAND["valid"]) + "; "
         + in_band("test ndcg@10", res["ndcg@10"], SASREC_BAND["test"]))
 
-    again, again_result, again_counts = train_sasrec("sasrec-train-again", seed, root_dir, data)
-    best = [r.model.state_dict() for r in (rec, again)]
-    last = [sasrec_params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
-            for r in (result, again_result)]
-    same = (all(torch.equal(best[0][name], best[1][name]) for name in best[0])
-            and all(torch.equal(last[0][name], last[1][name]) for name in last[0])
-            and (result["best_epoch"], result["valid_metric"]) == (again_result["best_epoch"], again_result["valid_metric"]))
-    if not same:
-        fail("two trainings of one seed gave different parameters")
-    log("sasrec-train", f"a second training of seed {seed} gave the same best and last parameters bit for bit "
-        f"(best epoch {result['best_epoch']}, valid ndcg@10 {result['valid_metric']:.6f})")
+    runs, again_counts = [], {}
+    for _ in range(2):
+        again, again_result, more = train_sasrec("sasrec-train-again", seed, root_dir, data,
+                                                 max_epoch=SASREC_REPEAT_EPOCHS)
+        runs.append((again, again_result))
+        again_counts = {key: again_counts.get(key, 0) + value for key, value in more.items()}
+    same_sasrec_runs("sasrec-train", runs)
+    log("sasrec-train", f"two more trainings of seed {seed} for {SASREC_REPEAT_EPOCHS} epochs gave the same best "
+        f"and last parameters bit for bit (best epoch {runs[0][1]['best_epoch']}, valid ndcg@10 "
+        f"{runs[0][1]['valid_metric']:.6f})")
     log("sasrec-train", "one more epoch: " + device_breakdown(
         lambda: float(rec.engine.epoch_fn.run(rec.engine.generator)), top=8, kernel="flash_"))
     return {"sasrec_train": counts, "sasrec_train_again": again_counts}
@@ -2311,22 +2362,32 @@ def train_graph(name, phase, seed, root_dir, data, **model):
     return train_dense(GRAPH_FAMILY[name][0](graph_config(name, seed, root_dir, **model)), phase, data)
 
 
-def repeats_bit_for_bit(name, phase, seed, epochs, train, params_from_jax):
+def repeats_bit_for_bit(name, phase, seed, epochs, train, params_from_jax, main=None):
     """Two more trainings (``train(phase, max_epoch)``) of ``epochs`` epochs
     of one seed give the same best and last parameters and every epoch's
-    metrics, bit for bit."""
-    runs = [train(f"{phase}-repeat", epochs) for _ in range(2)]
-    (first, first_result, _, _), (again, again_result, _, _) = runs
-    last = [params_from_jax(load_raw_checkpoint(os.path.join(r["model_save_dir"], "last"))["params"])
-            for r in (first_result, again_result)]
+    metrics, bit for bit. ``main``, the (recommender, result) of the seed's
+    longer training, stands in for the first of them where its best epoch
+    is the last of those ``epochs``: its best checkpoint then holds their
+    last parameters."""
+    def saved(result, *where):
+        return params_from_jax(load_raw_checkpoint(os.path.join(result["model_save_dir"], *where))["params"])
+
+    again, again_result, _, _ = train(f"{phase}-repeat", epochs)
+    if main is not None and main[1]["best_epoch"] == epochs - 1:
+        (first, first_result), twice = main, "one more training"
+        first_last, history = saved(first_result), first.engine.bookkeeper.history[:epochs]
+    else:
+        first, first_result, _, _ = train(f"{phase}-repeat", epochs)
+        first_last, history, twice = saved(first_result, "last"), first.engine.bookkeeper.history, "two more trainings"
+    last = saved(again_result, "last")
     best = [r.model.state_dict() for r in (first, again)]
     same = (all(torch.equal(best[0][key], best[1][key]) for key in best[0])
-            and all(torch.equal(last[0][key], last[1][key]) for key in last[0])
-            and first.engine.bookkeeper.history == again.engine.bookkeeper.history)
+            and all(torch.equal(first_last[key], last[key]) for key in last)
+            and history == again.engine.bookkeeper.history)
     if not same:
         fail(f"two {name} trainings of {epochs} epochs of one seed gave different parameters")
-    log(phase, f"two more trainings of seed {seed} for {epochs} epochs gave the same best and last parameters and "
-        "every epoch's metrics bit for bit")
+    log(phase, f"{twice} of seed {seed} for {epochs} epochs gave the same best and last parameters and every "
+        f"epoch's metrics bit for bit{' as the training above' if twice.startswith('one') else ''}")
 
 
 def graph_training(seed, root_dir, data):
@@ -2438,14 +2499,14 @@ def multineg_training(seed, root_dir, data):
 
 class DrawReplay:
     """Inside the block, SGL's subgraph draws, SimGCL's noise draws, the
-    dropout masks, VAECF's and VBCAR's (TVBR's) latent noise and the FFN's
-    ReLU decisions of a
-    recording run are kept in order and handed, in that order, to a
-    replaying run (``replaying`` True): the same draws and the same
-    branches on the card and on the CPU (a pre-activation within rounding
-    of 0 may fall on either side: at TiSASRec's step 2 at the shipped width
-    one did, and moved a gradient by 2.3e-5, PERF.md section 6). Each
-    function takes its device, or a tensor on it, last."""
+    dropout masks, the flash attention's dropout seeds, VAECF's and VBCAR's
+    (TVBR's) latent noise and the ReLU decisions (``ops.activations.relu``:
+    the FFN's and the MLP tower's) of a recording run are kept in order and
+    handed, in that order, to a replaying run (``replaying`` True): the same
+    draws and the same branches on the card and on the CPU (a pre-activation
+    within rounding of 0 may fall on either side: at TiSASRec's step 2 at
+    the shipped width one did, and moved a gradient by 2.3e-5, PERF.md
+    section 6). Each function takes its device, or a tensor on it, last."""
 
     def __init__(self):
         self.queue = collections.deque()
@@ -2465,10 +2526,13 @@ class DrawReplay:
 
     def __enter__(self):
         for module, name in ((sgl_model, "sgl_draws"), (simgcl_model, "perturbation_noise"),
-                             (port_attention, "dropout_mask"), (vaecf_model, "latent_noise"),
-                             (vbcar_model, "latent_noise"), (port_attention, "relu_keep")):
+                             (port_attention, "dropout_mask"), (port_attention, "dropout_seed"),
+                             (vaecf_model, "latent_noise"), (vbcar_model, "latent_noise")):
             self._saved.append((module, name, getattr(module, name)))
             setattr(module, name, self._wrap(getattr(module, name)))
+        keep = self._wrap(lambda z: z > 0)
+        self._saved.append((port_activations, "relu", port_activations.relu))
+        port_activations.relu = lambda z: torch.where(keep(z), z, 0.0)  # torch.relu's values and gradient
         return self
 
     def __exit__(self, *exc):
@@ -2476,7 +2540,7 @@ class DrawReplay:
             setattr(module, name, real)
 
 
-def steps_match_cpu(phase, start, engine, data, steps, tol, eps_set=0.0):
+def steps_match_cpu(phase, start, engine, data, steps, tol, eps_set=0.0, mesh_devices=None):
     """``steps`` optimizer steps from ``engine``'s weights (on the device of
     ``start``, the recommender that built it) and through the port on the
     CPU, on the batches ``engine`` forms and the same draws (``DrawReplay``):
@@ -2488,10 +2552,12 @@ def steps_match_cpu(phase, start, engine, data, steps, tol, eps_set=0.0):
     Such elements alone may pass ``tol`` (at most EPS_SET_SHARE of the
     elements, each within lr a step). Returns the largest differences (the
     eps-set elements apart), the dense A's the card built a step, and a
-    report of the eps-set elements past ``tol``."""
+    report of the eps-set elements past ``tol``. A config with a mesh runs on
+    ``mesh_devices`` of the CPU there."""
     cpu = type(start)(start.config, device="cpu")
     cpu.data = data
-    cpu_engine = TrainEngine(cpu.config, cpu.device).build(cpu._build_model(data.n_users, data.n_items), data)
+    cpu_engine = TrainEngine(cpu.config, cpu.device, mesh_devices).build(cpu._build_model(data.n_users, data.n_items),
+                                                                         data)
     cpu_engine.model.load_state_dict(engine.model.state_dict())
     batches = [x[:steps] for x in engine.epoch_fn.form(engine.generator)]
     params = dict(engine.model.named_parameters())
@@ -2595,7 +2661,7 @@ def memory_training(seed, root_dir, data):
     check_graph_serving(phase, rec)
     counts[phase] = check_no_kernel(phase)  # since train_dense zeroed them: train(), test() and the serving
     repeats_bit_for_bit("CMN", phase, seed, CMN_REPEAT_EPOCHS, lambda p, epochs: train_capped(
-        "CMN", p, seed, root_dir, data, pretrained, max_epoch=epochs), flatten_params)
+        "CMN", p, seed, root_dir, data, pretrained, max_epoch=epochs), flatten_params, main=(rec, result))
     return counts
 
 
@@ -2618,10 +2684,12 @@ def ssl_config(name, seed, root_dir, **model):
 
 
 def built_engine(rec, data):
-    """(rec, engine) with the engine built as rec.train(data) builds it: the
-    weights its training starts from."""
+    """(rec, engine) with the engine built as rec.train(data) builds it (on
+    rec's mesh devices where its config has a mesh): the weights its training
+    starts from."""
     rec.data = data
-    return rec, TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
+    return rec, TrainEngine(rec.config, rec.device, rec.mesh_devices).build(
+        rec._build_model(data.n_users, data.n_items), data)
 
 
 def ssl_engine(name, seed, root_dir, data, device=None, **model):
@@ -3321,34 +3389,44 @@ def retrieval_at_scale(seed, device="cuda", n_users=RETRIEVAL_SCALE["n_users"], 
 
 
 def engine_state(engine):
-    """Everything a run carries from epoch to epoch, as tensors on the CPU."""
-    names = {id(p): n for n, p in engine.model.named_parameters()}
+    """Everything a run carries from epoch to epoch, as tensors on the CPU:
+    on a mesh also each table shard as it is placed."""
     out = {f"param/{k}": v.detach().cpu().clone() for k, v in engine.model.state_dict().items()}
-    for p, st in engine.optimizer.state.items():
-        for key, value in st.items():
-            out[f"opt/{names[id(p)]}/{key}"] = torch.as_tensor(value).cpu().clone()
+    for name, st in engine._param_states().items():
+        for key, value in (st or {}).items():
+            out[f"opt/{name}/{key}"] = torch.as_tensor(value).cpu().clone()
     if engine.sparse_optim:
         out["sparse/step"] = torch.tensor(engine.epoch_fn.state["step"])
         for name, (m, v) in engine.epoch_fn.state["moments"].items():
             out[f"sparse/{name}/m"], out[f"sparse/{name}/v"] = m.cpu().clone(), v.cpu().clone()
+    if engine.sharded:
+        for name, shards in engine.epoch_fn.tables.items():
+            for m, shard in enumerate(shards[0]):
+                out[f"shard/{name}/{m}"] = shard.detach().cpu().clone()
+    elif getattr(engine.epoch_fn, "dp", None) is not None:
+        for name, shards in engine.epoch_fn.dp.tables.items():
+            for m, shard in enumerate(shards):
+                out[f"shard/{name}/{m}"] = shard.detach().cpu().clone()
     out["generator"] = engine.generator.get_state()
     bk = engine.bookkeeper
     out["bookkeeper"] = torch.tensor([bk.best_valid_performance, bk.best_epoch, bk.n_no_update], dtype=torch.float64)
     return out
 
 
-def resume_repeats(phase, seed, root_dir, data, device="cuda", epochs=RESUME_EPOCHS, **model):
+def resume_repeats(phase, seed, root_dir, data, device="cuda", epochs=RESUME_EPOCHS, config=None, mesh_devices=None,
+                   **model):
     """``epochs`` epochs, then a fresh engine's resume_training from their
     last/ for ``epochs`` more, equal to 2 * ``epochs`` straight epochs bit
     for bit: parameters, optimizer state, lazy-Adam moments and step,
-    generator and bookkeeper. Returns fused_rowadam's launches (one a step
-    of the three runs)."""
-    cfg = mf_config(seed, root_dir, **model)
+    generator, bookkeeper and, on a mesh (``config``'s, over
+    ``mesh_devices``), every table shard. Returns fused_rowadam's launches
+    (one a step of the three runs)."""
+    cfg = config or mf_config(seed, root_dir, **model)
     valid = data.eval_candidates(data.valid[0])
 
     def engine():
         built = build_model(cfg.model, data.n_users, data.n_items, {}, device)
-        return TrainEngine(cfg, device).build(built, data, valid)
+        return TrainEngine(cfg, device, mesh_devices).build(built, data, valid)
 
     zero_kernel_counts()
     t0 = time.perf_counter()
@@ -3448,6 +3526,303 @@ def serving_and_resume_phases(seed, root_dir):
     return counts
 
 
+def on_mesh(config, mesh_shape):
+    """``config`` on a ("data", "model") mesh of ``mesh_shape``."""
+    return config.replace(system={"mesh": {"data": mesh_shape[0], "model": mesh_shape[1]}})
+
+
+def mesh_engine(cls, config, data, device, devices):
+    """(recommender, engine) built as ``cls(config, device, devices).train``
+    builds them."""
+    return built_engine(cls(config, device=device, mesh_devices=devices), data)
+
+
+def counted(totals, fn):
+    """``fn()`` with the kernels' counts from 0 around it, added to ``totals``."""
+    zero_kernel_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for key, value in kernel_counts().items():
+        totals[key] = totals.get(key, 0) + value
+    return out
+
+
+def mesh_gaps(ref, engine):
+    """The largest relative |d| between two engines' parameters (over
+    max(1, |x|)) and optimizer moments (over the moment's largest |x|)."""
+    for e in (ref, engine):
+        if getattr(e.epoch_fn, "dp", None) is not None:
+            e.epoch_fn.dp.assemble()
+    theirs, ours = dict(ref.model.named_parameters()), dict(engine.model.named_parameters())
+    gaps = {}
+    for name, p in theirs.items():
+        q = ours[name].detach().to(p.device)
+        gaps[name] = float(((p.detach() - q).abs() / p.detach().abs().clamp(min=1)).max())
+    want, got = ref._param_states(), engine._param_states()
+    for name, state in want.items():
+        for key in ("exp_avg", "exp_avg_sq", "nu"):
+            if state and key in state:
+                x, y = state[key], got[name][key].to(state[key].device)
+                gaps[f"{name}.{key}"] = float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30)
+    return gaps
+
+
+def epochs_within(path, ref, engine, epochs, totals):
+    """``epochs`` epochs of ``engine`` (the path's, counted into ``totals``)
+    and of ``ref`` on the batches ``engine`` forms and ``engine``'s draws and
+    ReLU decisions (``DrawReplay``: a pre-activation within rounding of 0
+    falls on either side on two devices, and one flip moves a whole row of
+    gradient), each within MESH_TOL of the other (losses to 1e-5 relative).
+    Returns the largest gap an epoch and the collectives of ``engine``'s
+    runs."""
+    worst, comms = [], {}
+    for epoch, limit in zip(range(epochs), MESH_TOL):
+        batches = engine.epoch_fn.form(engine.generator)
+        with DrawReplay() as replay:
+            with recording() as counts:
+                got = float(counted(totals, lambda: engine.epoch_fn.run_batches(*batches,
+                                                                                 generator=engine.generator)))
+            replay.replaying = True
+            want = float(ref.epoch_fn.run_batches(*(b.to(ref.device) for b in batches), generator=ref.generator))
+            if replay.queue:
+                fail(f"{path} epoch {epoch}: the reference took {len(replay.queue)} draws fewer than the mesh")
+        for kind, entry in counts.items():
+            comms.setdefault(kind, {"calls": 0, "bytes": 0})
+            comms[kind]["calls"] += entry["calls"]
+            comms[kind]["bytes"] += entry["bytes"]
+        gaps = mesh_gaps(ref, engine)
+        worst.append(max(gaps.values()))
+        if abs(got - want) > 1e-5 * abs(want) or worst[-1] > limit:
+            fail(f"{path} epoch {epoch}: loss {got} against {want}; largest relative |d| {worst[-1]} past {limit}: "
+                 + ", ".join(f"{k} {v:.3g}" for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])[:4]))
+    return worst, comms
+
+
+def float_param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters() if p.requires_grad and p.is_floating_point())
+
+
+def check_one_allreduce(path, comms, steps, pbytes):
+    """(f): one all-reduce a step of the float parameters' bytes (and the
+    loss's), within 2%."""
+    ar = comms.get("all_reduce", {"calls": 0, "bytes": 0})
+    per_step = ar["bytes"] / max(ar["calls"], 1)
+    if ar["calls"] != steps or not pbytes * 0.98 <= per_step <= pbytes * 1.02 + 64:
+        fail(f"{path}: collectives {comms} over {steps} steps; expected one all-reduce a step of {pbytes} bytes")
+    others = {k: v for k, v in comms.items() if k != "all_reduce"}
+    log(path, f"collectives: {ar['calls']} all-reduces for {steps} steps, {per_step:.0f} bytes each = the float "
+        f"parameters' {pbytes} bytes + {per_step - pbytes:.0f} (the loss); others {others or 'none'}")
+
+
+def sasrec_on_meshes(seed, root_dir, data, devices, tag):
+    """(a): SASRec at the checkpoint's config through SASRec(cfg,
+    mesh_devices=...) on a (4, 1) mesh (2 epochs at dropout 0, each shard's
+    flash forward and backward; trained twice, bit for bit), held
+    within MESH_TOL of the port's own (4, 1) run on the CPU on the same
+    batches, and at the shipped dropout its first SASREC_MESH_STEPS steps
+    against the CPU's with the same draws (1e-5); then a (2, 2) mesh
+    against the one-device trainer (the whole batch's loss: SASRec's
+    (n_items + 1)-row table is not row-sharded, so no ring). Returns the
+    kernels' counts by path."""
+    counts = {}
+    path = f"sasrec-mesh-4x1{tag}"
+    zero_kernel_counts()
+    cfg = on_mesh(sasrec_config(seed, root_dir, dropout_rate=0.0, max_epoch=DENSE_MESH_EPOCHS), (4, 1))
+    rec, result, flash = train_sasrec(path, seed, root_dir, data, config=cfg, mesh_devices=devices)
+    blocks = rec.model.num_blocks
+    # train_sasrec sets the flash counts to 0: add the repeat's
+    again, again_result, more = train_sasrec(f"{path}-repeat", seed, root_dir, data, config=cfg, mesh_devices=devices)
+    for key in flash:
+        flash[key] += more[key]
+    same_sasrec_runs(path, [(rec, result), (again, again_result)])
+    counts[path] = dict(kernel_counts(), flash_causal_attention_fwd=flash["steps"] + flash["eval"],
+                        flash_causal_attention_bwd=flash["bwd"])
+    log(path, f"{DENSE_MESH_EPOCHS} epochs on a (4, 1) mesh of {devices} through SASRec(cfg, mesh_devices).train("
+        f"data), best valid ndcg@10 {result['valid_metric']:.6f}; a second training of the seed gave the same best "
+        "and last parameters bit for bit")
+
+    path = f"sasrec-mesh-4x1-vs-cpu{tag}"
+    _, engine = mesh_engine(SASRec, cfg, data, None, devices)
+    _, cpu = mesh_engine(SASRec, cfg, data, "cpu", ["cpu"] * 4)
+    cpu.model.load_state_dict(engine.model.state_dict())
+    totals = {}
+    t0 = time.perf_counter()
+    worst, comms = epochs_within(path, cpu, engine, DENSE_MESH_EPOCHS, totals)
+    steps = DENSE_MESH_EPOCHS * engine.epoch_fn.num_batches
+    for kernel in ("flash_causal_attention_fwd", "flash_causal_attention_bwd"):
+        check_launches(kernel, path, totals[kernel], blocks * 4 * steps)
+    counts[path] = totals
+    log(path, f"{DENSE_MESH_EPOCHS} epochs ({steps} steps x {engine.epoch_fn.batch_size} sequences, 4 shards of "
+        f"{engine.epoch_fn.batch_size // 4}) on the card and on a (4, 1) mesh of the CPU, same batches: largest "
+        f"relative |d| per epoch " + ", ".join(f"{w:.3g}" for w in worst) + f" (limits {MESH_TOL[:len(worst)]}); "
+        f"{time.perf_counter() - t0:.2f} s with the CPU's")
+    check_one_allreduce(path, comms, steps, float_param_bytes(engine.model))
+
+    path = f"sasrec-mesh-4x1-dropout{tag}"
+    zero_kernel_counts()
+    shipped = on_mesh(sasrec_config(seed, root_dir), (4, 1))
+    start, engine = mesh_engine(SASRec, shipped, data, None, devices)
+    diff, _, report = steps_match_cpu(path, start, engine, data, SASREC_MESH_STEPS, SSL_CPU_TOL, eps_set=SSL_EPS_SET,
+                                      mesh_devices=["cpu"] * 4)
+    torch.cuda.synchronize()
+    counts[path] = kernel_counts()
+    for kernel in ("flash_causal_attention_fwd", "flash_causal_attention_bwd"):
+        check_launches(kernel, path, counts[path][kernel], blocks * 4 * SASREC_MESH_STEPS)
+    log(path, f"{SASREC_MESH_STEPS} steps at the shipped dropout {shipped.model.dropout_rate} on a (4, 1) mesh (each "
+        f"shard's own dropout seed from the step's generator state) equal the CPU's with the same draws: "
+        + describe_steps(diff, SSL_CPU_TOL) + report)
+
+    path = f"sasrec-mesh-2x2{tag}"
+    cfg22 = on_mesh(sasrec_config(seed, root_dir, dropout_rate=0.0), (2, 2))
+    _, engine = mesh_engine(SASRec, cfg22, data, None, devices)
+    _, one = mesh_engine(SASRec, sasrec_config(seed, root_dir, dropout_rate=0.0), data, None, None)
+    one.model.load_state_dict(engine.model.state_dict())
+    totals = {}
+    t0 = time.perf_counter()
+    worst, comms = epochs_within(path, one, engine, DENSE_MESH_EPOCHS, totals)
+    secs = time.perf_counter() - t0
+    steps = DENSE_MESH_EPOCHS * engine.epoch_fn.num_batches
+    for kernel in ("flash_causal_attention_fwd", "flash_causal_attention_bwd"):
+        check_launches(kernel, path, totals[kernel], blocks * steps)
+    if totals["ring_allgather"] or engine.epoch_fn.dp.tables:
+        fail(f"{path}: SASRec's (n_items + 1)-row table was sharded or gathered ({totals})")
+    counts[path] = totals
+    log(path, f"{DENSE_MESH_EPOCHS} epochs on a (2, 2) mesh of {devices} (the whole batch's loss; no table of "
+        f"n_users or n_items rows, so nothing row-sharded and no ring) against the one-device trainer on the same "
+        f"batches: largest relative |d| per epoch " + ", ".join(f"{w:.3g}" for w in worst)
+        + f"; collectives {comms or 'none'}; both runs {secs:.2f} s")
+    return counts
+
+
+def mf_on_meshes(seed, root_dir, data, sasrec_data, devices, tag):
+    """(b), (c), (d): MF on the dense path on a (2, 2) mesh through
+    MatrixFactorization(cfg, mesh_devices).train(data), item_emb (1,682 rows)
+    row-sharded and gathered by the ring once a step, against the one-device
+    dense trainer within MESH_TOL; NCF on a (4, 1) mesh against the port on
+    a (4, 1) mesh of the CPU, same batches; the mesh's evaluators against
+    one device's. Returns the kernels' counts by path."""
+    counts = {}
+    path = f"mf-dense-mesh-2x2{tag}"
+    zero_kernel_counts()
+    rec = MatrixFactorization(on_mesh(mf_config(seed, root_dir, sparse_optim=False, max_epoch=DENSE_MESH_EPOCHS),
+                                      (2, 2)), mesh_devices=devices)
+    with recording() as comms:
+        result = rec.train(data)
+    torch.cuda.synchronize()
+    counts[path] = kernel_counts()
+    ref = MatrixFactorization(mf_config(seed, root_dir, sparse_optim=False, max_epoch=DENSE_MESH_EPOCHS))
+    ref.train(data)
+    engine, trainer = rec.engine, rec.engine.epoch_fn
+    for e in (engine, ref.engine):  # the final epoch's parameters, not the best ones train() left for serving
+        e._restore_live()
+    steps = DENSE_MESH_EPOCHS * trainer.num_batches
+    cards = len(set(engine.mesh.devices[0]))  # one launch a card of data row 0 a call
+    check_launches("ring_allgather", path, counts[path]["ring_allgather"], steps * len(trainer.dp.tables) * cards)
+    gaps = mesh_gaps(ref.engine, engine)
+    if max(gaps.values()) > MESH_TOL[DENSE_MESH_EPOCHS - 1]:
+        fail(f"{path}: differs from the one-device dense trainer: {gaps}")
+    ag = comms.get("all_gather", {"calls": 0, "bytes": 0})
+    # The training steps gather the item table; the all-reduces are the
+    # evaluators' metric sums over the 2 data shards, one an evaluation.
+    evaluations = ((engine.valid_evaluator is not None) + (engine.test_evaluator is not None)) * DENSE_MESH_EPOCHS
+    if (set(trainer.dp.tables) != {"item_emb"} or ag["calls"] != steps
+            or comms.get("all_reduce", {}).get("calls", 0) != evaluations):
+        fail(f"{path}: sharded {sorted(trainer.dp.tables)}, collectives {comms} over {steps} steps and "
+             f"{evaluations} evaluations")
+    rates = [trainer.padded_size / s for s in engine.epoch_seconds]
+    log(path, f"{DENSE_MESH_EPOCHS} epochs of {trainer.num_batches} steps x {trainer.batch_size} on a (2, 2) mesh of "
+        f"{devices}: item_emb ({data.n_items} rows) in 2 row shards, user_emb ({data.n_users} rows, under 1,024) "
+        f"whole; against the one-device dense trainer: largest relative |d| {max(gaps.values()):.3g}; collectives: "
+        f"{ag['calls']} all-gathers ({ag['bytes'] // max(ag['calls'], 1)} bytes each, the item table) and as many "
+        f"reduce-scatters, no gradient all-reduce (the whole batch's loss on data row 0; {evaluations} all-reduces "
+        f"of the evaluators' metric sums); examples/s per epoch "
+        + ", ".join(f"{r:.0f}" for r in rates) + f"; best valid ndcg@10 {result['valid_metric']:.6f}")
+
+    path = f"ncf-mesh-4x1{tag}"
+    zero_kernel_counts()
+    ncf = on_mesh(ncf_config("NCF", seed, root_dir), (4, 1))
+    _, engine = mesh_engine(NeuCF, ncf, data, None, devices)
+    _, cpu = mesh_engine(NeuCF, ncf, data, "cpu", ["cpu"] * 4)
+    cpu.model.load_state_dict(engine.model.state_dict())
+    totals = {}
+    worst, comms = epochs_within(path, cpu, engine, 1, totals)
+    counts[path] = check_no_kernel(path)
+    check_one_allreduce(path, comms, engine.epoch_fn.num_batches, float_param_bytes(engine.model))
+    log(path, f"1 epoch ({engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size} positives) on a (4, 1) "
+        f"mesh of {devices} against a (4, 1) mesh of the CPU, same batches: largest relative |d| {worst[0]:.3g} "
+        f"(limit {MESH_TOL[0]})")
+
+    path = f"mesh-eval{tag}"
+    zero_kernel_counts()
+    valid = data.eval_candidates(data.valid[0])
+    users, relevance = eval_relevance(data)
+    sasrec = SASRec(sasrec_config(seed, root_dir)).load(CHECKPOINT, sasrec_data)
+    blocks, gaps = sasrec.model.num_blocks, {}
+    for name, model, d in (("MF", rec.model, data), ("SASRec", sasrec.model, sasrec_data)):
+        cand = d.eval_candidates(d.valid[0]) if name == "SASRec" else valid
+        u, r = (users, relevance) if name == "MF" else eval_relevance(d)
+        mesh = make_mesh(2, 2, devices) if name == "MF" else make_mesh(4, 1, devices)
+        pairs = ((RankingEvaluator(model, cand, mesh=mesh), RankingEvaluator(model, cand)),
+                 (FullCatalogEvaluator(model, u, r, d.user_item_csr(), mesh=mesh),
+                  FullCatalogEvaluator(model, u, r, d.user_item_csr())))
+        for kind, (sharded, one) in zip(("ranking", "full-catalog"), pairs):
+            got, want = sharded.evaluate(), one.evaluate()
+            gap = max(abs(got[k] - want[k]) for k in want)
+            if sorted(got) != sorted(want) or gap > MESH_EVAL_TOL:
+                fail(f"{path}: {name}'s {kind} evaluation on the mesh differs from one device's by {gap}")
+            gaps[f"{name} {kind} ({mesh.shape['data']} data shards)"] = gap
+    torch.cuda.synchronize()
+    counts[path] = kernel_counts()
+    check_launches("flash forward", path, counts[path]["flash_causal_attention_fwd"], blocks * (4 + 1) * 2)
+    log(path, "the mesh's evaluators against one device's (limit 1e-6): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+    return counts
+
+
+def mesh_resume(seed, root_dir, data, devices, tag):
+    """(e): 1 + 1 resumed epochs equal 2 straight epochs bit for bit on the
+    (1, 4) ring-lookup sparse mesh and the (2, 2) dense mesh, every table
+    shard included. Returns the kernels' counts by path."""
+    counts = {}
+    n = len(data.train_arrays().users)
+    for path, shape, cfg, tables in (
+            # batches of 3,200 and 1,600 keep the 4 epochs short (at 400 a
+            # ring-lookup epoch takes ~10 s on one card)
+            (f"mesh-resume-sparse-1x4{tag}", (1, 4), mesh_config(seed, root_dir, (1, 4), batch_size=3200), 2),
+            (f"mesh-resume-dense-2x2{tag}", (2, 2),
+             on_mesh(mf_config(seed, root_dir, sparse_optim=False, batch_size=1600), (2, 2)), 1)):
+        zero_kernel_counts()
+        resume_repeats(path, seed, root_dir, data, devices[0], epochs=1, config=cfg, mesh_devices=devices)
+        torch.cuda.synchronize()
+        counts[path] = kernel_counts()
+        mesh = make_mesh(*shape, devices)
+        batch = cfg.model.batch_size // shape[0] * shape[0]
+        # 4 epochs (1, 1 resumed, 2 straight); the sparse trainer's ring gathers
+        # each table once a data row a step, the dense mesh each sharded table
+        # once a step; one launch a card of data row 0.
+        calls = tables * 4 * -(-n // batch) * (shape[0] if cfg.model.sparse_optim else 1)
+        check_launches("ring_allgather", path, counts[path]["ring_allgather"], calls * len(set(mesh.devices[0])))
+    return counts
+
+
+def dense_mesh_phases(seed, root_dir):
+    """Phase 37: the dense trainers, the evaluators and resume on meshes of
+    ``["cuda:0"] * 4`` (and again on cuda:0-3 with 4 cards). Returns the
+    kernels' counts by path."""
+    t0 = time.perf_counter()
+    data, sasrec_data = mf_split(), SequentialData(load_split_data(SPLIT, n_test=1))
+    counts = {}
+    layouts = [(["cuda:0"] * 4, "")]
+    if torch.cuda.device_count() >= 4:
+        layouts.append(([f"cuda:{i}" for i in range(4)], "-4cards"))
+    for devices, tag in layouts:
+        counts.update(sasrec_on_meshes(seed, root_dir, sasrec_data, devices, tag))
+        counts.update(mf_on_meshes(seed, root_dir, data, sasrec_data, devices, tag))
+        counts.update(mesh_resume(seed, root_dir, data, devices, tag))
+    log("dense-mesh", f"phase 37 took {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
@@ -3455,7 +3830,8 @@ PROFILE_SEQ = "seq-models"  # phases 28-30's profiles
 PROFILE_GROCERY = "grocery-models"  # phases 31-33's profiles
 # All five run in one child process after phase 33 (one process start, not five).
 PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ, PROFILE_GROCERY)
-PROFILED_CAPPED_STEPS = 10  # training steps profiled for each model of phases 21-22 and 24-30
+PROFILED_CAPPED_STEPS = 5  # training steps profiled for each model of phases 21-22 and 24-30
+PROFILE_WARMUP_STEPS = 2  # steps run before each profiled window
 
 
 def profile_phase(phase, seed):
@@ -3483,7 +3859,7 @@ def profile_phase(phase, seed):
                 rec.data = data
                 engine = TrainEngine(rec.config, rec.device).build(rec._build_model(data.n_users, data.n_items), data)
                 trainer = engine.epoch_fn
-                trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
+                trainer.run_batches(*(x[:PROFILE_WARMUP_STEPS] for x in trainer.form(engine.generator)), generator=engine.generator)
                 report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, engine.generator,
                                                                            PROFILED_CAPPED_STEPS, top=8))
             return
@@ -3501,7 +3877,7 @@ def profile_phase(phase, seed):
                 rec.model = rec._build_model(data.n_users, data.n_items)
                 rec.engine = TrainEngine(rec.config, rec.device).build(rec.model, data)
                 trainer = rec.engine.epoch_fn
-                trainer.run_batches(*(x[:5] for x in trainer.form(rec.engine.generator)))  # to warm up
+                trainer.run_batches(*(x[:PROFILE_WARMUP_STEPS] for x in trainer.form(rec.engine.generator)))  # to warm up
                 report(f"{name} {PROFILED_CAPPED_STEPS} steps", profile_window(trainer, rec.engine.generator,
                                                                            PROFILED_CAPPED_STEPS, top=8))
                 if name == "PairwiseGMF":
@@ -3531,7 +3907,7 @@ def profile_phase(phase, seed):
             for name in family:
                 _, engine = engine_of(name, seed, root_dir, data)
                 trainer = engine.epoch_fn
-                trainer.run_batches(*(x[:5] for x in trainer.form(engine.generator)), generator=engine.generator)
+                trainer.run_batches(*(x[:PROFILE_WARMUP_STEPS] for x in trainer.form(engine.generator)), generator=engine.generator)
                 report(f"{name} {steps} steps", profile_window(trainer, engine.generator, steps, top=8))
             return
 
@@ -3543,6 +3919,8 @@ def main():
                         help="run only the ring kernel and the sharded MF phases (11-16)")
     parser.add_argument("--ring-only", action="store_true",
                         help="run only the ring kernel's checks and times (11-12)")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="build the four kernels and run only the dense mesh phase (37)")
     parser.add_argument("--profile", nargs="+", choices=PROFILES,
                         help="profile phases 20-22, 23-25, 26-27, 28-30 and/or 31-33 in this process alone (the "
                              "main run runs all five in one child)")
@@ -3576,6 +3954,10 @@ def main():
     log("build", f"nvcc calls in parallel: {wall:.2f} s of wall time; one after another they "
         f"take {sum(secs for _, secs, _ in built.values()):.2f} s")
 
+    if args.mesh_only:
+        with tempfile.TemporaryDirectory() as root_dir:
+            dense_mesh_phases(args.seed, root_dir)
+        return 0
     if sharded_only:
         with tempfile.TemporaryDirectory() as root_dir:
             ring_rows, ring_launches = sharded_phases(args.seed, root_dir, cards_only=True, ring_only=args.ring_only)
@@ -3660,8 +4042,9 @@ def main():
         graph_counts.update(seq_phases(args.seed, root_dir))
         graph_counts.update(grocery_phases(args.seed, root_dir))
         graph_counts.update(serving_and_resume_phases(args.seed, root_dir))
+        graph_counts.update(dense_mesh_phases(args.seed, root_dir))
         profiled_in_child(PROFILES, args.seed)
-    for path, counts in graph_counts.items():  # phases 17-36: 0 but phases 34's flash and 36's fused_rowadam
+    for path, counts in graph_counts.items():  # phases 17-37: 0 but 34's flash, 36's fused_rowadam and 37's
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

@@ -30,7 +30,7 @@ SPLIT = os.path.join(
     REPO, "parity_runs/datasets/synthetic_structured/processed/leave_one_out/full_n_neg_100"
 )
 SEEDS = range(10)
-CAPS = (20, 30, 40)
+CAPS = (15, 20, 30, 40)
 
 
 def summarize(runs):

@@ -41,7 +41,7 @@ class OwnReluDecisions(cs.DrawReplay):
     def __enter__(self):
         super().__enter__()
         for module, name, real in self._saved:
-            if name == "relu_keep":
+            if name == "relu":
                 setattr(module, name, real)
         return self
 

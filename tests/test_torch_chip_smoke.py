@@ -166,7 +166,7 @@ def test_ncf_config_is_the_shipped_config(name, emb_dim):
     assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
     m = cfg.model
     assert (m.model, m.emb_dim, m.num_negative, m.batch_size, m.lr, m.max_n_update) == (name, emb_dim, 4, 400, 1e-3, 20)
-    assert m.max_epoch == chip_smoke.NCF_EPOCHS == 20
+    assert m.max_epoch == chip_smoke.NCF_EPOCHS == 15
     assert set(chip_smoke.NCF_BANDS[name]) == {"valid", "test"}
     assert os.path.isdir(os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.NCF_FAMILY[name][2]))
 
@@ -581,6 +581,29 @@ def test_grocery_training_runs_its_checks_on_the_cpu(tmp_path, monkeypatch, none
     assert "5 Adam steps at emb 8" in text and "2000 triples drawn from the seed" in text
     assert "reported, not held" in text and "the CPU's lists for every user" in text
     assert "gave the same best and last parameters" in text
+
+
+def test_a_repeat_is_held_against_a_training_whose_best_epoch_ends_it(tmp_path, monkeypatch, none_is_the_cpu):
+    """A longer training whose best epoch is the repeat's last stands in for
+    one of the two repeats: one more training is held against its best
+    checkpoint and history, and a changed best checkpoint fails it."""
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: None)
+    data = chip_smoke.grocery_split()
+
+    def train(phase, epochs):
+        cfg = chip_smoke.grocery_config("Triple2vec", 0, str(tmp_path), max_epoch=epochs, n_sample=2000, emb_dim=8)
+        return chip_smoke.train_dense(chip_smoke.Triple2vec(cfg), phase, data)
+
+    rec, result, _, _ = train("triple2vec-train", 1)
+    assert result["best_epoch"] == 0
+    ran = []
+    chip_smoke.repeats_bit_for_bit("Triple2vec", "p", 0, 1, lambda p, e: ran.append(e) or train(p, e),
+                                   chip_smoke.flatten_params, main=(rec, result))
+    assert ran == [1]
+    with torch.no_grad():
+        rec.model.user_emb.add_(1e-6)
+    with pytest.raises(SystemExit):
+        chip_smoke.repeats_bit_for_bit("Triple2vec", "p", 0, 1, train, chip_smoke.flatten_params, main=(rec, result))
 
 
 def test_steps_match_cpu_hands_vbcars_latent_noise_over(tmp_path):

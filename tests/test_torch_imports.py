@@ -98,6 +98,25 @@ TopKRetrievalEvaluator(mf, [0, 1], csr, csr, ks=(1, 2), mode="approx").evaluate(
 RatingEvaluator(mf, dict(col_user=[0, 1], col_item=[1, 2], col_rating=[1.0, 0.0]), ("rmse", "auc")).evaluate()
 chip_smoke.retrieval_bound_ms(4, 5, 3, torch.float32)
 chip_smoke.same_ids("p", "w", chip_smoke.np.zeros((1, 2)), chip_smoke.np.zeros((1, 2)), None)
+from beta_recsys_tpu_torch.core.eval_engine import RankingEvaluator
+from beta_recsys_tpu_torch.parallel import default_param_rule, make_sharded_train_step, pad_to_multiple, shard_batch
+from beta_recsys_tpu_torch.parallel import shard_params
+from beta_recsys_tpu_torch.parallel.comm_analysis import collective_bytes, estimate_link_bytes
+from beta_recsys_tpu_torch.parallel.data_parallel import DataParallelStep, mesh_round_batch, pointwise_prepare
+for shape in ((2, 1), (1, 2)):
+    mesh = make_mesh(*shape, ["cpu"] * 2)
+    rule = default_param_rule(4, 5, min_rows=1)
+    shard_params(dict(mf.named_parameters()), mesh, rule)
+    shard_batch(dict(users=torch.arange(4)), mesh)
+    step, place = make_sharded_train_step(mf, torch.optim.SGD(mf.parameters(), lr=0.1), mesh, param_rule=rule)
+    batch = dict(users=torch.tensor([0, 1]), pos_items=torch.tensor([1, 2]), neg_items=torch.tensor([3, 4]))
+    counts = collective_bytes(step, batch)
+    estimate_link_bytes(counts, 2)
+    place()
+mesh_round_batch(5, mesh)
+pad_to_multiple(chip_smoke.np.arange(3), 2)
+pointwise_prepare(dict(u=torch.arange(2), it=torch.arange(2), neg=torch.arange(4), r=torch.ones(2)))
+chip_smoke.on_mesh(chip_smoke.mf_config(0, "unused", sparse_optim=False), (2, 2))
 print(len(names))
 """
 

@@ -143,8 +143,15 @@ def test_training_evaluates_once_and_the_jax_package_loads_the_checkpoint(both, 
 
 
 def test_a_mesh_of_several_devices_raises(both, tmp_path):
+    """The "none" kind on a (2, 1) mesh: nothing to train, the validation
+    evaluated on the mesh's data shards, equal to one device's."""
     data, _ = both
     cfg = Config(_config(tmp_path, "UserKNN")).replace(system={"mesh": {"data": 2, "model": 1}})
     model = build_model(cfg.model, data.n_users, data.n_items, {"interactions": data.user_item_csr()}, device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
+    valid = data.eval_candidates(data.valid[0])
+    engine = TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data, valid)
+    assert engine.epoch_fn is None and engine.valid_evaluator.mesh is engine.mesh
+    result = engine.train(verbose=False)
+    want = TrainEngine(Config(_config(tmp_path, "UserKNN")), "cpu").build(model, data, valid).valid_evaluator.evaluate()
+    key = engine.bookkeeper.key
+    np.testing.assert_allclose(result["valid_metric"], want[key], rtol=1e-6)

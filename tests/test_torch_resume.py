@@ -179,12 +179,26 @@ def test_jax_resumes_a_port_last_checkpoint(optimizer, split, tmp_path):
 
 
 def test_resume_on_a_mesh_raises(split, tmp_path):
+    """A (1, 2) row-sharded sparse run's last/ resumed on the mesh: the
+    tables' shards, their moments and the step the run ended with."""
     data = BaseData(split)
-    cfg = _config(tmp_path, sparse_optim=True).replace(system={"mesh": {"data": 1, "model": 2}})
-    model = build_model(cfg.model, data.n_users, data.n_items, {}, "cpu")
-    engine = TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        engine.resume_training(MF_CHECKPOINT)
+    cfg = _config(tmp_path, sparse_optim=True, max_epoch=1).replace(system={"mesh": {"data": 1, "model": 2}})
+
+    def engine():
+        model = build_model(cfg.model, data.n_users, data.n_items, {}, "cpu")
+        return TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
+
+    first = engine()
+    first.train(verbose=False)
+    resumed = engine()
+    assert resumed.resume_training(first.checkpoint_dir) == 1
+    for name, shards in first.epoch_fn.tables.items():
+        for want, got in zip(shards[0], resumed.epoch_fn.tables[name][0]):
+            assert torch.equal(want, got), name
+    for name, (m, v) in first.epoch_fn.state["moments"].items():
+        assert torch.equal(m, resumed.epoch_fn.state["moments"][name][0]), name
+        assert torch.equal(v, resumed.epoch_fn.state["moments"][name][1]), name
+    assert resumed.epoch_fn.step_count == first.epoch_fn.step_count > 0
 
 
 def test_profile_writes_a_trace_of_epochs_0_and_1(split, tmp_path):

@@ -286,9 +286,10 @@ def test_jax_sharded_checkpoint_serves_in_the_port(engine_split, tmp_path):
 
 
 def test_mesh_routing(engine_split, tmp_path, monkeypatch, capsys):
-    """Too few devices raise; a mesh on the dense path raises citing the
-    roadmap; "auto" routes as the JAX package does; the exchange defaults by
-    the model axis; the bucketed exchange warns when it drops rows."""
+    """Too few devices raise; a mesh on the dense path trains through the
+    dense mesh step; "auto" routes as the JAX package does; the exchange
+    defaults by the model axis; the bucketed exchange warns when it drops
+    rows."""
     data, _ = engine_split
 
     def engine(mesh, devices, **model):
@@ -299,8 +300,8 @@ def test_mesh_routing(engine_split, tmp_path, monkeypatch, capsys):
     with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         engine({"data": 1, "model": 4}, None)
     for sparse in (False, "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine({"data": 2, "model": 1}, ["cpu"] * 2, sparse_optim=sparse)
+        dense = engine({"data": 2, "model": 1}, ["cpu"] * 2, sparse_optim=sparse)
+        assert not dense.sharded and dense.epoch_fn.dp.mode == "data"
     assert not engine({"data": 1, "model": 1}, None, sparse_optim=False).sharded  # one device: the dense path
     monkeypatch.setattr(train_engine, "AUTO_SPARSE_TABLE_BYTES", 0)
     auto = engine("auto", ["cpu"] * 2, sparse_optim="auto")

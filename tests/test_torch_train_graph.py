@@ -197,7 +197,11 @@ def test_a_seed_repeats_bit_for_bit(split, tmp_path, name):
 
 
 def test_a_mesh_of_several_devices_raises(split, tmp_path):
+    """LightGCN trains an epoch on a (2, 1) mesh (each data shard's
+    propagation and loss, one all-reduce a step)."""
     data, _ = _both_data(split)
-    cfg = Config(_config(tmp_path, "LightGCN")).replace(system={"mesh": {"data": 2, "model": 1}})
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        LightGCN(cfg, device="cpu", mesh_devices=["cpu"] * 2).train(data)
+    cfg = Config(_config(tmp_path, "LightGCN", max_epoch=1)).replace(system={"mesh": {"data": 2, "model": 1}})
+    rec = LightGCN(cfg, device="cpu", mesh_devices=["cpu"] * 2)
+    result = rec.train(data)
+    assert rec.engine.epoch_fn.dp.mode == "data" and len(rec.engine.bookkeeper.history) == 1
+    assert np.isfinite(result["valid_metric"])

@@ -221,11 +221,17 @@ def test_build_reads_num_neg_as_jax_and_routes_the_pointwise_kind(split, tmp_pat
 
 
 def test_mesh_and_multineg_batches_raise(split, tmp_path):
+    """NCF builds and trains an epoch on a (2, 1) mesh (the pointwise batch
+    expanded on each data shard, tests/test_torch_mesh_dense.py holds it to
+    JAX); a batch kind the dense trainer lacks raises."""
     data, _ = _both_data(split)
-    cfg = Config(_config(tmp_path, "NCF")).replace(system={"mesh": {"data": 2, "model": 1}})
+    cfg = Config(_config(tmp_path, "NCF", batch_size=63)).replace(system={"mesh": {"data": 2, "model": 1}})
     model = build_model(cfg.model, data.n_users, data.n_items, device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
+    engine = TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data, data.eval_candidates(data.valid[0]))
+    assert isinstance(engine.epoch_fn, PointwiseEpochTrainer) and engine.epoch_fn.dp.mode == "data"
+    assert engine.epoch_fn.batch_size == 62  # rounded down to the data axis, as the JAX package rounds it
+    engine.train(max_epoch=1, verbose=False)
+    assert [h["epoch"] for h in engine.bookkeeper.history] == [0] and engine.has_checkpoint("last")
     # Multineg batches train (tests/test_torch_train_multineg.py); a batch
     # kind the dense trainer lacks raises, as in the JAX package.
     with pytest.raises(ValueError, match="got none"):
@@ -234,14 +240,15 @@ def test_mesh_and_multineg_batches_raise(split, tmp_path):
 
 def test_neucf_takes_mesh_devices_and_its_mesh_raises(split, tmp_path):
     """NeuCF passes ``mesh_devices`` on to the base class, as every other
-    recommender does; on a (2, 2) mesh the pointwise path raises, citing
-    ROADMAP.md's item 8."""
+    recommender does, and trains on a (2, 2) mesh: the whole batch's loss,
+    as the JAX package's partitioner computes it."""
     data, _ = _both_data(split)
-    cfg = Config(_config(tmp_path, "NCF")).replace(system={"mesh": {"data": 2, "model": 2}})
+    cfg = Config(_config(tmp_path, "NCF", max_epoch=1)).replace(system={"mesh": {"data": 2, "model": 2}})
     rec = NeuCF(cfg, device="cpu", mesh_devices=["cpu"] * 4)
     assert rec.mesh_devices == ["cpu"] * 4
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        rec.train(data)
+    result = rec.train(data)
+    assert rec.engine.epoch_fn.dp.mode == "model" and np.isfinite(result["valid_metric"])
+    assert rec.engine.valid_evaluator.mesh is rec.engine.mesh
 
 
 RECOMMENDERS = {"GMF": (GMFRecommender, JaxGMFRecommender), "MLP": (MLPRecommender, JaxMLPRecommender),

@@ -242,6 +242,9 @@ def test_a_seed_repeats_bit_for_bit(both_data, tmp_path, name):
 
 
 def test_a_mesh_of_several_devices_raises(both_data, tmp_path):
-    cfg = Config(_config(tmp_path, "BUIR")).replace(system={"mesh": {"data": 2, "model": 1}})
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        recommenders.BUIR(cfg, device="cpu", mesh_devices=["cpu"] * 2).train(both_data[0])
+    """BUIR trains an epoch on a (2, 1) mesh: its target's EMA once a step."""
+    cfg = Config(_config(tmp_path, "BUIR", max_epoch=1)).replace(system={"mesh": {"data": 2, "model": 1}})
+    rec = recommenders.BUIR(cfg, device="cpu", mesh_devices=["cpu"] * 2)
+    result = rec.train(both_data[0])
+    assert rec.engine.epoch_fn.dp.mode == "data" and np.isfinite(result["valid_metric"])
+    assert rec.engine.epoch_fn.optimizer is rec.engine.optimizer

@@ -230,11 +230,14 @@ def test_training_runs_and_the_jax_package_loads_the_checkpoint(both, tmp_path, 
 
 
 def test_a_mesh_of_several_devices_raises(both, tmp_path):
+    """Triple2vec builds and trains an epoch on a (2, 1) mesh."""
     _, data, _ = both
     cfg = Config(_config(tmp_path, "Triple2vec")).replace(system={"mesh": {"data": 2, "model": 1}})
     model = build_model(cfg.model, data.n_users, data.n_items, device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 item 8"):
-        TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
+    engine = TrainEngine(cfg, "cpu", mesh_devices=["cpu"] * 2).build(model, data)
+    assert engine.epoch_fn.dp.mode == "data" and engine.epoch_fn.batch_size % 2 == 0
+    engine.train(max_epoch=1, verbose=False)
+    assert engine.has_checkpoint("last") and all(torch.isfinite(p).all() for p in model.parameters())
 
 
 def test_the_triple2vec_checkpoint_serves_the_jax_metrics(tmp_path):
