@@ -35,6 +35,7 @@ from ..ops.topk import NEG_INF, exclusion_lists, retrieval_topk, streaming_topk
 from ..parallel.collectives import psum
 from ..parallel.data_parallel import Replicas
 from ..parallel.mesh import DATA_AXIS
+from ..utils.common import save_to_csv
 from ..utils.constants import MAX_N_UPDATE
 
 DEFAULT_METRICS = ("ndcg", "precision", "recall", "map")
@@ -345,16 +346,4 @@ def write_per_user(evaluator, path):
 def append_csv_row(record, result_file):
     """Append one row to a CSV, creating it with a header if absent; a column
     the file lacks is added at the end (earlier rows leave it empty)."""
-    os.makedirs(os.path.dirname(result_file) or ".", exist_ok=True)
-    prior, fields = [], []
-    if os.path.exists(result_file):
-        with open(result_file, newline="") as f:
-            reader = csv.DictReader(f)
-            fields = list(reader.fieldnames or [])
-            prior = list(reader)
-    fields += [k for k in record if k not in fields]
-    with open(result_file, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=fields)
-        writer.writeheader()
-        writer.writerows(prior)
-        writer.writerow(record)
+    save_to_csv(record, result_file)

@@ -8,7 +8,7 @@ names the devices of ``system.mesh`` where they are not every CUDA device
 parameters, the model ``test()`` reports, and the engine keeps the
 final-epoch ones aside: ``use_best=False`` serves those, and serving never
 changes which parameters a later call sees (``TrainEngine.serving``). A
-frame is a dict of numpy columns (``datasets/split_io.py``); ``recommend``
+frame is a dict of numpy columns (``utils/common.py``); ``recommend``
 returns such a dict.
 
 ``recommend`` routes as the JAX package does. A model with a factorized
@@ -25,6 +25,7 @@ summed train rating is positive, so a zero-rated train row is excluded on
 the first and kept on the others.
 """
 
+import os
 from contextlib import nullcontext
 
 import numpy as np
@@ -36,6 +37,7 @@ from ..data.base_data import BaseData
 from ..device import fp32_matmuls, resolve_device
 from ..models import build_model
 from ..ops.topk import exclusion_lists, retrieval_topk, streaming_topk, topk_lowest_index
+from ..utils.monitor import Monitor
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_PREDICTION_COL, DEFAULT_USER_COL
 from .checkpoint import load_metadata, load_raw_checkpoint
 from .eval_engine import FAST_RETRIEVAL_WIDTH
@@ -96,23 +98,27 @@ class Recommender:
 
     def train(self, data):
         """Train on ``data`` (a ``BaseData``); returns {"valid_metric",
-        "best_epoch", "model_save_dir", "run_time"}. Validation runs on the
-        first validation copy every epoch. ``model.tune`` (the JAX
-        package's tuner) raises: ROADMAP.md, section 1 item 9."""
+        "best_epoch", "model_save_dir", "run_time"}, ``run_time`` the
+        ``Monitor``'s wall clock over build and training. Validation runs on
+        the first validation copy every epoch. With ``model.tune`` it runs
+        the config's grid instead (``experiment/tune.py``) and returns the
+        best trial."""
         if self.config.model.get("tune"):
-            raise NotImplementedError(
-                "model.tune: the hyperparameter tuner (JAX experiment/tune.py) is ROADMAP.md, section 1 item 9 "
-                "(experiment layer and CLIs)"
-            )
+            from ..experiment.tune import tune
+
+            return tune(self.__class__, self.config, data, device=self.device)
         self.data = data
         self.model = self._build_model(data.n_users, data.n_items)
         self.engine = TrainEngine(self.config, self.device, self.mesh_devices)
         self.model_run_id = self.engine.model_run_id
+        sys_cfg = self.config.system
+        monitor = Monitor(log_dir=os.path.join(sys_cfg.get("root_dir", "."), sys_cfg.get("run_dir", "runs/")),
+                          delay=1, device=self.device)
         valid_cand = data.eval_candidates(data.valid[0]) if data.valid else None
         test_cand = data.eval_candidates(data.test[0]) if data.test else None
         self.engine.build(self.model, data, valid_cand, test_cand)
         result = self.engine.train()
-        self.run_time = result["run_time"]
+        self.run_time = result["run_time"] = monitor.stop()
         self.engine.hold_best()
         self.model.eval()
         return result
@@ -175,7 +181,8 @@ class Recommender:
         }
         with self._serving(True):
             return final_test(self.config, self.test_model(), [self.data.eval_candidates(df) for df in tests],
-                              self.model_run_id, result_para, self.run_time)
+                              self.model_run_id, result_para,
+                              self.engine.run_time if self.engine is not None else None)
 
     @torch.no_grad()
     def predict(self, data_df, use_best=True):

@@ -30,6 +30,7 @@ from ..ops.kernels.rowadam import RowAdamTables, adam_rows, bias_corrections
 from ..parallel.collectives import all_gather, psum
 from ..parallel.embedding import local_psum_gather, local_ring_gather, shard_table
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from .mixed_precision import row_loss_with_dtype
 from .train_engine import EpochBatches
 
 TPU_ROW_LAYOUTS = ("unified", "compact", "unified_bf16")
@@ -85,7 +86,8 @@ class SparseEpochTrainer(EpochBatches):
     Both return the mean batch loss as a 0-d device tensor.
     """
 
-    def __init__(self, model, train_arrays, batch_size, neg_sampler, lr, dense_optimizer, row_update="auto"):
+    def __init__(self, model, train_arrays, batch_size, neg_sampler, lr, dense_optimizer, row_update="auto",
+                 compute_dtype=None):
         device = next(model.parameters()).device
         super().__init__(train_arrays, batch_size, neg_sampler, device)
         if row_update == "auto":
@@ -98,6 +100,7 @@ class SparseEpochTrainer(EpochBatches):
         if row_update not in ("fused", "xla"):
             raise ValueError(f"unknown row_update {row_update!r}; use 'fused', 'xla' or 'auto'")
         self.model = model
+        self.row_loss = row_loss_with_dtype(model, compute_dtype)
         self.lr = float(lr)
         self.row_update = row_update
         self.table_roles = model.row_tables()
@@ -123,7 +126,7 @@ class SparseEpochTrainer(EpochBatches):
             name: table.detach()[role_ids[self.table_roles[name]]].requires_grad_()
             for name, table in self.tables.items()
         }
-        loss = self.model.row_loss(rows, self.dense, batch)
+        loss = self.row_loss(rows, self.dense, batch)
         grads = torch.autograd.grad(loss, [*rows.values(), *self.dense.values()])
         g_rows = dict(zip(rows, grads))
         self.state["step"] += 1
@@ -217,7 +220,7 @@ class ShardedSparseEpochTrainer(EpochBatches):
     """
 
     def __init__(self, model, train_arrays, batch_size, neg_sampler, lr, mesh, dense_optimizer,
-                 lookup_strategy="psum", grad_exchange="allgather", capacity_factor=2.0):
+                 lookup_strategy="psum", grad_exchange="allgather", capacity_factor=2.0, compute_dtype=None):
         if lookup_strategy not in ("psum", "ring"):
             raise ValueError(f"unknown lookup_strategy {lookup_strategy!r}; use 'psum' or 'ring'")
         if grad_exchange not in ("allgather", "bucketed"):
@@ -232,6 +235,7 @@ class ShardedSparseEpochTrainer(EpochBatches):
         self.num_batches = -(-self.n // self.batch_size)
         self.padded_size = self.num_batches * self.batch_size
         self.model, self.mesh, self.lr = model, mesh, float(lr)
+        self.row_loss = row_loss_with_dtype(model, compute_dtype)
         self.lookup_strategy, self.grad_exchange = lookup_strategy, grad_exchange
         self.capacity_factor = float(capacity_factor)
         self.table_roles = model.row_tables()
@@ -290,7 +294,7 @@ class ShardedSparseEpochTrainer(EpochBatches):
             for m in range(n_model):
                 leaves = {name: rows[name][d][m].detach().requires_grad_() for name in self.tables}
                 dense = self.dense[d][m]
-                loss = self.model.row_loss(leaves, dense, batch[d][m])
+                loss = self.row_loss(leaves, dense, batch[d][m])
                 grads = torch.autograd.grad(loss, [*leaves.values(), *dense.values()])
                 losses[d][m] = loss.detach()
                 for name, g in zip(leaves, grads):

@@ -66,6 +66,7 @@ from ..utils.alias_table import AliasTable
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_USER_COL, MAX_N_UPDATE
 from .checkpoint import check_backend, load_metadata, load_raw_checkpoint, save_checkpoint, save_metadata
 from .eval_engine import EvalBookkeeper, RankingEvaluator, test_eval
+from .mixed_precision import compute_dtype_of, torch_dtype
 
 # Dense positive bitmasks are used for rejection sampling up to this many cells.
 _BITMASK_CELL_LIMIT = 64 * 1024 * 1024
@@ -238,11 +239,11 @@ class DenseEpochTrainer(EpochBatches):
     ``self.optimizer`` is the optimizer it steps."""
 
     def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, neg_shape=(), mesh=None,
-                 prepare=None):
+                 prepare=None, compute_dtype=None):
         super().__init__(train_arrays, batch_size, neg_sampler, next(model.parameters()).device, neg_shape, mesh)
         self.model = model
         self.dp = DataParallelStep(model, optimizer, mesh, prepare=prepare,
-                                   post_update=getattr(model, "post_update", None))
+                                   post_update=getattr(model, "post_update", None), compute_dtype=compute_dtype)
         self.optimizer = self.dp.optimizer
 
     def step(self, users, pos, neg, generator):
@@ -265,8 +266,10 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
     B * num_neg) negatives, the negatives of each positive together. Both
     return the mean batch loss as a 0-d device tensor."""
 
-    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh=None):
-        super().__init__(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh, prepare=pointwise_prepare)
+    def __init__(self, model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh=None,
+                 compute_dtype=None):
+        super().__init__(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh, prepare=pointwise_prepare,
+                         compute_dtype=compute_dtype)
         self.ratings = torch.as_tensor(train_arrays.ratings, dtype=torch.float32, device=self.device)
         self.num_neg = int(num_neg)
 
@@ -298,17 +301,21 @@ class PointwiseEpochTrainer(DenseEpochTrainer):
         return self.dp({"u": users, "it": items, "neg": neg, "r": labels}, generator)
 
 
-def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1, mesh=None):
+def make_epoch_fn(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg=1, mesh=None,
+                  compute_dtype=None):
     """The dense whole-epoch trainer for the model's pairwise, multineg or
     pointwise batches (the last two with ``num_neg`` negatives a positive),
-    on ``mesh`` when given."""
+    on ``mesh`` when given, its loss in ``compute_dtype`` when given."""
     kind = model.batch_kind
     if kind == "pairwise":
-        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh)
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, mesh=mesh,
+                                 compute_dtype=compute_dtype)
     if kind == "multineg":
-        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, (int(num_neg),), mesh)
+        return DenseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, (int(num_neg),), mesh,
+                                 compute_dtype=compute_dtype)
     if kind == "pointwise":
-        return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh)
+        return PointwiseEpochTrainer(model, optimizer, train_arrays, batch_size, neg_sampler, num_neg, mesh,
+                                     compute_dtype)
     raise ValueError(f"make_epoch_fn handles pairwise/pointwise/multineg; got {kind}")
 
 
@@ -328,9 +335,9 @@ class SequenceEpochTrainer:
     on ``mesh`` (None: one device), as ``DenseEpochTrainer``'s does.
     """
 
-    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None):
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None, compute_dtype=None):
         self.model = model
-        self.dp = DataParallelStep(model, optimizer, mesh)
+        self.dp = DataParallelStep(model, optimizer, mesh, compute_dtype=compute_dtype)
         self.optimizer = self.dp.optimizer
         self.device = next(model.parameters()).device
         self.users, self.seq, self.pos = (
@@ -378,8 +385,8 @@ class SequenceTimeEpochTrainer(SequenceEpochTrainer):
     ``SequentialData.tisasrec_arrays``): the counterpart of
     ``make_sequence_time_epoch_fn`` (TiSASRec)."""
 
-    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None):
-        super().__init__(model, optimizer, seq_arrays, batch_size, neg_sampler, mesh)
+    def __init__(self, model, optimizer, seq_arrays, batch_size, neg_sampler, mesh=None, compute_dtype=None):
+        super().__init__(model, optimizer, seq_arrays, batch_size, neg_sampler, mesh, compute_dtype)
         self.time_matrix = torch.as_tensor(seq_arrays["time_matrix"], dtype=torch.long, device=self.device)
 
     def batch(self, rows, users, neg0):
@@ -399,9 +406,9 @@ class PermutationEpochTrainer:
     draws. Both return the mean batch loss as a 0-d device tensor. Each step
     goes through a ``DataParallelStep`` on ``mesh`` (None: one device)."""
 
-    def __init__(self, model, optimizer, n, batch_size, what, mesh=None):
+    def __init__(self, model, optimizer, n, batch_size, what, mesh=None, compute_dtype=None):
         self.model = model
-        self.dp = DataParallelStep(model, optimizer, mesh)
+        self.dp = DataParallelStep(model, optimizer, mesh, compute_dtype=compute_dtype)
         self.optimizer = self.dp.optimizer
         self.device = next(model.parameters()).device
         self.n = int(n)
@@ -437,10 +444,11 @@ class PrefixEpochTrainer(PermutationEpochTrainer):
     .prefix_target_arrays``), a batch {"seq", "target"}: the counterpart of
     ``make_prefix_epoch_fn`` (NARM)."""
 
-    def __init__(self, model, optimizer, arrays, batch_size, mesh=None):
+    def __init__(self, model, optimizer, arrays, batch_size, mesh=None, compute_dtype=None):
         self.seq = torch.as_tensor(arrays["seq"], dtype=torch.long, device=next(model.parameters()).device)
         self.target = torch.as_tensor(arrays["target"], dtype=torch.long, device=self.seq.device)
-        super().__init__(model, optimizer, self.seq.shape[0], batch_size, "prefix/target examples", mesh)
+        super().__init__(model, optimizer, self.seq.shape[0], batch_size, "prefix/target examples", mesh,
+                         compute_dtype)
 
     def batch(self, order):
         return {"seq": self.seq[order], "target": self.target[order]}
@@ -451,9 +459,9 @@ class UserRowEpochTrainer(PermutationEpochTrainer):
     {"rows", "users"}: the counterpart of ``make_userrow_epoch_fn``
     (VAECF)."""
 
-    def __init__(self, model, optimizer, user_rows, batch_size, mesh=None):
+    def __init__(self, model, optimizer, user_rows, batch_size, mesh=None, compute_dtype=None):
         self.rows = torch.as_tensor(user_rows, dtype=torch.float32, device=next(model.parameters()).device)
-        super().__init__(model, optimizer, self.rows.shape[0], batch_size, "user rows", mesh)
+        super().__init__(model, optimizer, self.rows.shape[0], batch_size, "user rows", mesh, compute_dtype)
 
     def batch(self, order):
         return {"rows": self.rows[order], "users": order}
@@ -470,11 +478,12 @@ class TripleEpochTrainer(PermutationEpochTrainer):
     ``alias_tables``), by Walker's alias method."""
 
     def __init__(self, model, optimizer, triples, batch_size, n_users, n_items, n_neg, user_alias=None,
-                 item_alias=None, mesh=None):
+                 item_alias=None, mesh=None, compute_dtype=None):
         device = next(model.parameters()).device
         self.triples = {key: torch.as_tensor(values, dtype=torch.long, device=device)
                         for key, values in triples.items()}
-        super().__init__(model, optimizer, self.triples["users"].shape[0], batch_size, "basket triples", mesh)
+        super().__init__(model, optimizer, self.triples["users"].shape[0], batch_size, "basket triples", mesh,
+                         compute_dtype)
         self.n_users, self.n_items, self.n_neg = int(n_users), int(n_items), int(n_neg)
         self.user_alias, self.item_alias = user_alias, item_alias
 
@@ -553,8 +562,8 @@ class TrainEngine:
     ``system.profile`` writes a ``torch.profiler`` trace (host, and the card
     where the run is on one) of epochs 0-1 to ``<root_dir>/<run_dir>/
     <model_run_id>/profile/trace.json``, the JAX trace's place.
-    ``system.log_to_file`` (JAX ``utils/logger.py``) raises: ROADMAP.md,
-    section 1 item 9."""
+    ``system.log_to_file`` tees stdout and stderr into the run's log files
+    (``utils/logger.py``)."""
 
     def __init__(self, config, device, mesh_devices=None):
         self.config = config
@@ -563,14 +572,16 @@ class TrainEngine:
         self.mesh = None
         self.sharded = False
         sys_cfg, model_cfg = config.system, config.model
-        if sys_cfg.get("log_to_file", False):
-            raise NotImplementedError(
-                "system.log_to_file: the run logger (JAX utils/logger.py) is ROADMAP.md, section 1 item 9 "
-                "(experiment layer and CLIs)"
-            )
         check_backend(sys_cfg.get("checkpoint_backend"))
         self.model_run_id = make_run_id(model_cfg)
         root = sys_cfg.get("root_dir", ".")
+        # stdout and stderr teed into <root>/<log_dir>/<run id>.std{out,err}.log
+        # for the rest of the process (``run_logger.restore()`` ends it).
+        self.run_logger = None
+        if sys_cfg.get("log_to_file", False):
+            from ..utils.logger import Logger
+
+            self.run_logger = Logger(os.path.join(root, sys_cfg.get("log_dir", "logs/")), self.model_run_id)
         self.checkpoint_dir = os.path.join(root, sys_cfg.get("checkpoint_dir", "checkpoints/"), self.model_run_id)
         self.profile_dir = (os.path.join(root, sys_cfg.get("run_dir", "runs/"), self.model_run_id, "profile")
                             if sys_cfg.get("profile", False) else None)
@@ -588,10 +599,10 @@ class TrainEngine:
         evaluators."""
         self.model, self.data = model, data
         model_cfg, sys_cfg = self.config.model, self.config.system
-        if model_cfg.get("compute_dtype", sys_cfg.get("compute_dtype")) is not None:
-            raise NotImplementedError(
-                "compute_dtype: mixed precision is ROADMAP.md, section 1 item 2 (the rest of MF training)"
-            )
+        # Mixed precision: the loss in compute_dtype over float32 master
+        # weights, gradients and moments (core/mixed_precision.py).
+        compute_dtype = compute_dtype_of(self.config)
+        torch_dtype(compute_dtype)  # an unknown name raises here
         model.init_weights(torch.Generator().manual_seed(self.seed))
         kind = model.batch_kind
         self.mesh = self._make_mesh(sys_cfg.get("mesh"))
@@ -632,7 +643,7 @@ class TrainEngine:
                 mesh=self.mesh, dense_optimizer=lambda params: make_optimizer(model_cfg, params),
                 lookup_strategy=model_cfg.get("lookup_strategy", "psum"),
                 grad_exchange=model_cfg.get("grad_exchange", "bucketed" if n_model >= 4 else "allgather"),
-                capacity_factor=float(model_cfg.get("capacity_factor", 2.0)),
+                capacity_factor=float(model_cfg.get("capacity_factor", 2.0)), compute_dtype=compute_dtype,
             )
             self.optimizer = self.epoch_fn.dense_optimizers[0][0]
             self.dropped_grad_rows = self.lookup_overflow = 0
@@ -645,31 +656,31 @@ class TrainEngine:
             self.epoch_fn = SparseEpochTrainer(
                 model, data.train_arrays(), batch_size, neg_sampler,
                 lr=float(model_cfg.get("lr", 1e-3)), dense_optimizer=self.optimizer,
-                row_update=model_cfg.get("row_update", "auto"),
+                row_update=model_cfg.get("row_update", "auto"), compute_dtype=compute_dtype,
             )
         elif kind == "sequence":
             self.epoch_fn = SequenceEpochTrainer(
                 model, make_optimizer(model_cfg, model.parameters()), data.train_seq_arrays(model.maxlen),
-                int(model_cfg.get("batch_size", 128)), neg_sampler, mesh,
+                int(model_cfg.get("batch_size", 128)), neg_sampler, mesh, compute_dtype,
             )
         elif kind == "sequence_time":
             self.epoch_fn = SequenceTimeEpochTrainer(
                 model, make_optimizer(model_cfg, model.parameters()),
                 data.tisasrec_arrays(model.maxlen, model.time_span), int(model_cfg.get("batch_size", 128)),
-                neg_sampler, mesh,
+                neg_sampler, mesh, compute_dtype,
             )
         elif kind == "prefix":
             self.epoch_fn = PrefixEpochTrainer(
                 model, make_optimizer(model_cfg, model.parameters()),
                 data.prefix_target_arrays(int(model_cfg.get("maxlen", 19))), int(model_cfg.get("batch_size", 128)),
-                mesh,
+                mesh, compute_dtype,
             )
         elif kind == "userrow":
             rows = model.artifacts.get("user_rows")
             if rows is None:
                 rows = (np.asarray(data.user_item_csr().todense()) > 0).astype(np.float32)
             self.epoch_fn = UserRowEpochTrainer(model, make_optimizer(model_cfg, model.parameters()), rows,
-                                                int(model_cfg.get("batch_size", 256)), mesh)
+                                                int(model_cfg.get("batch_size", 256)), mesh, compute_dtype)
         elif kind == "triple":
             # The JAX engine draws its triples unseeded; here the run's seed
             # draws them, so a seed repeats bit for bit. Items' negatives
@@ -683,6 +694,7 @@ class TrainEngine:
                 user_alias=(alias_tables(data.train[DEFAULT_USER_COL], data.n_users, self.device)
                             if model_cfg.get("user_neg_weighted", False) else None),
                 item_alias=alias_tables(data.train[DEFAULT_ITEM_COL], data.n_items, self.device), mesh=mesh,
+                compute_dtype=compute_dtype,
             )
         elif kind == "none":  # the neighbourhood models: nothing to train, the evaluators sharded
             self.optimizer = make_optimizer(model_cfg, model.parameters())
@@ -691,7 +703,7 @@ class TrainEngine:
             num_neg = int(getattr(model, "num_neg", model_cfg.get("num_negative", 4)))
             self.epoch_fn = make_epoch_fn(model, make_optimizer(model_cfg, [p for p in model.parameters()
                                                                             if p.requires_grad]),
-                                          data.train_arrays(), batch_size, neg_sampler, num_neg, mesh)
+                                          data.train_arrays(), batch_size, neg_sampler, num_neg, mesh, compute_dtype)
         if self.epoch_fn is not None and not self.sparse_optim:
             self.optimizer = self.epoch_fn.optimizer  # over the mesh's table shards where it has any
         metrics = tuple(sys_cfg.get("metrics", ["ndcg", "precision", "recall", "map"]))

@@ -1,7 +1,7 @@
 """Dense re-indexing of a split and the arrays evaluation and serving need.
 
 Counterpart of ``BaseData`` in ``beta_recsys_tpu/data/base_data.py``, on
-numpy + scipy frames (dicts of columns, see ``datasets/split_io.py``) in
+numpy + scipy frames (dicts of columns, see ``utils/common.py``) in
 place of pandas. It keeps the reference's semantics exactly:
 
 - with ``intersect`` (the default), valid/test rows whose user or item

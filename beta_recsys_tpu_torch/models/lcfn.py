@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.mixed_precision import promoted
 from .base import RecModel
 from .losses import bpr_loss
 
@@ -62,8 +63,9 @@ class LCFN(RecModel):
     def _side(self, emb, basis, filters):
         outs = [emb]
         for f, t in zip(filters, self.transformers):
-            filtered = basis @ (f[:, None] * (basis.T @ emb))
-            emb = torch.sigmoid(filtered @ t)
+            # The float32 bases promote a compute_dtype's products, as in JAX.
+            filtered = basis @ (f[:, None] * torch.matmul(*promoted(basis.T, emb)))
+            emb = torch.sigmoid(torch.matmul(*promoted(filtered, t)))
             outs.append(emb)
         return torch.cat(outs, dim=1)
 

@@ -19,6 +19,7 @@ tree (``user_emb``, ``item_emb``, Xavier uniform).
 import torch
 from torch import nn
 
+from ..core.mixed_precision import promoted
 from ..ops.attention import inverted_dropout
 from ..ops.graph import edge_dropout
 from .base import RecModel
@@ -98,7 +99,7 @@ class MixGCF(RecModel):
         b, hops = n_e.shape[0], n_e.shape[2]
         seed = mixing_seeds(generator, (b, 1, hops, 1), n_e.device)
         mixed = seed * p_e[:, None, :, :] + (1 - seed) * n_e
-        scores = torch.einsum("bhd,bnhd->bnh", s_e, mixed)
+        scores = torch.einsum("bhd,bnhd->bnh", *promoted(s_e, mixed))  # float32 seeds promote, as in JAX
         idx = scores.detach().argmax(dim=1)  # (B, H+1)
         rows = torch.arange(b, device=idx.device)[:, None]
         return mixed[rows, idx, torch.arange(hops, device=idx.device)[None, :]]

@@ -9,6 +9,12 @@ LN. Candidate scoring reads each user's context row (``artifacts["ctx"]``,
 Training scores every position against its next item and a sampled negative
 (``loss``), with dropout drawn from the ``torch.Generator`` it is given.
 
+``"compute_dtype": "bfloat16"`` in the model config casts the float32
+parameters to bfloat16 inside ``log2feats``, in training and in serving, so
+the attention runs in bfloat16 (the flash kernels' bfloat16 path on the
+card); the scores are products of those features with the float32 item
+table, promoted to float32 as the JAX package promotes them.
+
 Parameter names and layouts follow the JAX params tree: ``item_emb``,
 ``pos_emb``, ``blocks.<i>.{attn_ln,attn,ffn_ln,ffn}.*`` and ``last_ln.*``,
 with projection weights as (in, out) (``convert.py``).
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mixed_precision import promoted
 from ..ops.attention import causal_mha, inverted_dropout, layer_norm, pointwise_ffn
 from .base import RecModel
 
@@ -76,6 +83,8 @@ class SASRec(RecModel):
         # "auto"/True: the flash kernel on CUDA tensors, its plain version on CPU
         # tensors; False: the plain version on either.
         self.fused_attention = config.get("fused_attention", "auto")
+        # Read from the model section only, as the JAX model reads it.
+        self.compute_dtype = torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32
         d, dev = self.emb_dim, self.device
         self.item_emb = nn.Parameter(torch.empty(n_items + 1, d, device=dev))
         self.pos_emb = nn.Parameter(torch.empty(self.maxlen, d, device=dev))
@@ -114,16 +123,29 @@ class SASRec(RecModel):
         drawn from it in the JAX package's order: the embedding, then per
         block the attention probabilities, FFN 1 and FFN 2. ``seq_emb_raw``
         replaces the item-table lookup with pre-gathered unscaled rows (the
-        loss shares one gather between inputs and targets)."""
+        loss shares one gather between inputs and targets). With a bfloat16
+        ``compute_dtype`` the float32 parameters and rows are cast first."""
+        dt = self.compute_dtype
+
+        def cast(p):
+            return p.to(dt) if p.dtype == torch.float32 else p
+
+        def group(params):
+            return {name: cast(p) for name, p in params.items()}
+
         T = log_seqs.shape[1]
-        raw = self.item_emb[log_seqs] if seq_emb_raw is None else seq_emb_raw
-        seqs = raw * math.sqrt(self.emb_dim)
-        seqs = seqs + self.pos_emb[None, self.maxlen - T:, :]
+        raw = cast(self.item_emb[log_seqs] if seq_emb_raw is None else seq_emb_raw)
+        # sqrt(d) in the model's compute type, as the JAX model rounds it. A
+        # float32 scale promotes rows that an engine-level cast made bfloat16
+        # (JAX promotes; torch would keep a 0-d operand's type out of it).
+        raw = raw.to(torch.promote_types(raw.dtype, dt))
+        seqs = raw * torch.tensor(math.sqrt(self.emb_dim), dtype=dt)
+        seqs = seqs + cast(self.pos_emb)[None, self.maxlen - T:, :]
         seqs = inverted_dropout(generator, seqs, self.dropout_rate)
         timeline = (log_seqs != 0)[..., None].to(seqs.dtype)
         seqs = seqs * timeline
         for blk in self.blocks:
-            ln, attn = blk["attn_ln"], blk["attn"]
+            ln, attn, ffn_ln = group(blk["attn_ln"]), group(blk["attn"]), group(blk["ffn_ln"])
             q = layer_norm(seqs, ln["scale"], ln["bias"])
             attn_out = causal_mha(
                 q, seqs, seqs, self.num_heads,
@@ -131,9 +153,10 @@ class SASRec(RecModel):
                 dropout_rate=self.dropout_rate, generator=generator, fused=self.fused_attention,
             )
             seqs = q + attn_out
-            seqs = layer_norm(seqs, blk["ffn_ln"]["scale"], blk["ffn_ln"]["bias"])
-            seqs = pointwise_ffn(seqs, blk["ffn"], self.dropout_rate, generator) * timeline
-        return layer_norm(seqs, self.last_ln["scale"], self.last_ln["bias"])
+            seqs = layer_norm(seqs, ffn_ln["scale"], ffn_ln["bias"])
+            seqs = pointwise_ffn(seqs, group(blk["ffn"]), self.dropout_rate, generator) * timeline
+        last_ln = group(self.last_ln)
+        return layer_norm(seqs, last_ln["scale"], last_ln["bias"])
 
     def loss(self, batch, generator=None):
         """Masked BCE-with-logits over (pos, neg) at every position, plus
@@ -163,11 +186,11 @@ class SASRec(RecModel):
 
     def score_candidates(self, users, cand_items):
         """(U,), (U, C) dense 0-indexed candidates -> (U, C) logits."""
-        final = self._final_feats(users)
-        return torch.einsum("ud,ucd->uc", final, self.item_emb[cand_items + 1])
+        return torch.einsum("ud,ucd->uc", *promoted(self._final_feats(users), self.item_emb[cand_items + 1]))
 
     def score_all(self, users):
-        return self._final_feats(users) @ self.item_emb[1:].T
+        final, table = promoted(self._final_feats(users), self.item_emb[1:])
+        return final @ table.T
 
     def score_pairs(self, users, items):
         """Per-pair scores against each user's context (Recommender.predict)."""

@@ -59,6 +59,11 @@ def time_aware_mha(blk, q, k, tm_flat, time_k, time_v, pos_k, pos_v, n_heads):
     B, T, D = q.shape
     dh = D // n_heads
     S = time_k.shape[0]
+    # Mixed precision: float32 activations promote the cast weights, as JAX
+    # promotes each product (torch's matmul raises on mixed types).
+    dt = torch.promote_types(q.dtype, blk["wq"].dtype)
+    blk = {name: w.to(dt) for name, w in blk.items()}
+    q, k, time_k, time_v, pos_k, pos_v = (x.to(dt) for x in (q, k, time_k, time_v, pos_k, pos_v))
 
     def heads(x):  # (B, T, D) -> (B, h, T, dh)
         return x.view(B, T, n_heads, dh).transpose(1, 2)
@@ -132,6 +137,8 @@ class TiSASRec(RecModel):
         package's order. ``seq_emb_raw`` replaces the item-table lookup."""
         T = log_seqs.shape[1]
         raw = self.item_emb[log_seqs] if seq_emb_raw is None else seq_emb_raw
+        # A float32 scale, as in the JAX model: it promotes cast rows.
+        raw = raw.to(torch.promote_types(raw.dtype, torch.float32))
         seqs = inverted_dropout(generator, raw * math.sqrt(self.emb_dim), self.dropout_rate)
         tm_flat = bucket_flat_index(time_matrices.clamp(0, self.time_span), self.num_heads, self.time_span + 1)
         pos_k, pos_v = self.abs_pos_k[self.maxlen - T:], self.abs_pos_v[self.maxlen - T:]

@@ -14,6 +14,7 @@ draws buckets below it.
 import torch
 import torch.nn.functional as F
 
+from ..core.mixed_precision import promoted
 from .mlp import dense, init_dense
 from .vbcar import VBCAR
 
@@ -64,7 +65,8 @@ class TVBR(VBCAR):
         def head(stat, bucket, p):
             one_hot = F.one_hot(bucket, self.time_dim).to(stat.dtype)
             one_hot = one_hot.view(*bucket.shape, *(1,) * (stat.dim() - 1 - bucket.dim()), -1).expand(shape)
-            return torch.cat([stat, one_hot, x_fea], dim=-1) @ p["w"] + p["b"]
+            # Float32 features promote a compute_dtype's product, as in JAX.
+            return torch.matmul(*promoted(torch.cat([stat, one_hot, x_fea], dim=-1), p["w"])) + p["b"]
 
         prior_t = (t - 1).clamp(min=0)
         return ((head(base_mu, t, mean_head), head(base_logvar, t, std_head)),

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mixed_precision import promoted
 from .base import RecModel
 from .mlp import dense, init_dense
 
@@ -61,14 +62,15 @@ class VAECF(RecModel):
 
     def encode(self, x):
         h = x
-        for layer in self.enc:
-            h = self.act(h @ layer["w"] + layer["b"])
-        return h @ self.mu["w"] + self.mu["b"], h @ self.logvar["w"] + self.logvar["b"]
+        for layer in self.enc:  # float32 rows promote a compute_dtype's products, as in JAX
+            h = self.act(torch.matmul(*promoted(h, layer["w"])) + layer["b"])
+        return (torch.matmul(*promoted(h, self.mu["w"])) + self.mu["b"],
+                torch.matmul(*promoted(h, self.logvar["w"])) + self.logvar["b"])
 
     def decode(self, z):
         h = z
         for i, layer in enumerate(self.dec):
-            h = h @ layer["w"] + layer["b"]
+            h = torch.matmul(*promoted(h, layer["w"])) + layer["b"]
             if i != len(self.dec) - 1:
                 h = self.act(h)
         return torch.softmax(h, dim=-1) if self.likelihood == "mult" else torch.sigmoid(h)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mixed_precision import promoted
 from .base import RecModel
 from .mlp import dense, init_dense
 from .triple2vec import skipgram
@@ -78,7 +79,9 @@ class VBCAR(RecModel):
         return self
 
     def _encode(self, fea, idx, l1, l2):
-        h = self.act(fea[idx] @ l1["w"] + l1["b"]) @ l2["w"] + l2["b"]
+        # Float32 features promote a compute_dtype's products, as in JAX.
+        h = self.act(torch.matmul(*promoted(fea[idx], l1["w"])) + l1["b"])
+        h = torch.matmul(*promoted(h, l2["w"])) + l2["b"]
         return h[..., : self.emb_dim], h[..., self.emb_dim:]  # mu, logvar
 
     def user_encode(self, idx):

@@ -11,8 +11,15 @@ FFN's ReLU is ``activations.relu``.
 
 import torch
 
+from ..core.mixed_precision import promoted
 from . import activations
 from .kernels.flash_attention import FlashCausalAttention, flash_causal_attention_reference
+
+
+def _mm(x, w):
+    """x @ w, a float32 operand promoting a bfloat16 one as JAX promotes
+    them (mixed precision: float32 activations against cast weights)."""
+    return torch.matmul(*promoted(x, w))
 
 
 def layer_norm(x, scale, bias, eps=1e-8):
@@ -46,8 +53,8 @@ def dropout_seed(generator, device):
 def pointwise_ffn(x, p, dropout_rate=0.0, generator=None):
     """Conv1d(k=1) -> ReLU -> [dropout] -> Conv1d(k=1) -> [dropout] with
     residual."""
-    h = inverted_dropout(generator, activations.relu(x @ p["w1"] + p["b1"]), dropout_rate)
-    h = inverted_dropout(generator, h @ p["w2"] + p["b2"], dropout_rate)
+    h = inverted_dropout(generator, activations.relu(_mm(x, p["w1"]) + p["b1"]), dropout_rate)
+    h = inverted_dropout(generator, _mm(h, p["w2"]) + p["b2"], dropout_rate)
     return x + h
 
 
@@ -67,7 +74,7 @@ def causal_mha(q, k, v, n_heads, wq, wk, wv, wo, dropout_rate=0.0, generator=Non
     seed = dropout_seed(generator, q.device) if rate > 0 else None
 
     def split_heads(x, w):
-        h = (x @ w).reshape(B, T, n_heads, dh)
+        h = _mm(x, w).reshape(B, T, n_heads, dh)
         return h.transpose(1, 2).reshape(B * n_heads, T, dh)
 
     heads = (split_heads(q, wq), split_heads(k, wk), split_heads(v, wv))
@@ -76,4 +83,4 @@ def causal_mha(q, k, v, n_heads, wq, wk, wv, wo, dropout_rate=0.0, generator=Non
     else:
         out, _ = flash_causal_attention_reference(*heads, rate, seed)
     out = out.reshape(B, n_heads, T, dh).transpose(1, 2).reshape(B, T, D)
-    return out @ wo
+    return _mm(out, wo)

@@ -106,7 +106,16 @@ class DensePropagator:
         if vals is not None:
             a = torch.zeros((self.n_nodes, self.n_nodes), dtype=vals.dtype, device=vals.device)
             a[self.rows, self.cols] = vals
-        return lambda x: a @ x
+
+        def apply(x):
+            if x.dtype == a.dtype:
+                return a @ x
+            # Mixed precision, as the JAX dense route computes it: a float32
+            # product of A (built in x's type from per-step values) and x,
+            # returned in x's type.
+            return ((a if vals is None else a.to(x.dtype)).float() @ x.float()).to(x.dtype)
+
+        return apply
 
     def spmm(self, x, vals=None):
         return self.operator(vals)(x)
@@ -164,7 +173,20 @@ class CsrPropagator:
         """x -> A @ x, A from ``vals`` (COO order; the packed values when
         None), laid out once for every call of the returned function."""
         a, a_t = self._packed if vals is None else self._matrices(vals)
-        return lambda x: _CsrMatmul.apply(x, a, a_t)
+        rounded = {}
+
+        def apply(x):
+            if x.dtype == a.dtype:
+                return _CsrMatmul.apply(x, a, a_t)
+            # Mixed precision: the JAX sparse routes multiply x by the edge
+            # values cast to x's type and return x's type. Torch has no
+            # low-precision sparse product on the CPU, so the product runs
+            # in float32 on the rounded values.
+            if x.dtype not in rounded:
+                rounded[x.dtype] = self._matrices((self.vals if vals is None else vals).to(x.dtype).float())
+            return _CsrMatmul.apply(x.float(), *rounded[x.dtype]).to(x.dtype)
+
+        return apply
 
     def spmm(self, x, vals=None):
         return self.operator(vals)(x)

@@ -27,15 +27,18 @@ dense trainer of ``core/train_engine.py`` takes its optimizer step through a
       copies the tables' real rows into the model.
 
 A mesh of one device, or none, is the one-device step: zero_grad, loss,
-backward, optimizer step, ``post_update``.
+backward, optimizer step, ``post_update``. With ``compute_dtype`` every mode
+computes its loss through ``loss_with_dtype`` (``core/mixed_precision.py``):
+the parameters, gathered tables included, cast down inside the step, the
+gradients and moments float32.
 """
 
 import copy
 
 import torch
 from torch import nn
-from torch.func import functional_call
 
+from ..core.mixed_precision import loss_with_dtype
 from ..ops.kernels.ring_exchange import ring_allgather
 from .collectives import pmean_flat, record
 from .embedding import pad_table
@@ -124,17 +127,6 @@ class Replicas:
         record("broadcast", sum(t.numel() * t.element_size() for t in source))
 
 
-class _Loss(nn.Module):
-    """``model.loss`` as a module call, for ``functional_call``."""
-
-    def __init__(self, model):
-        super().__init__()
-        self.model = model
-
-    def forward(self, batch, generator):
-        return self.model.loss(batch, generator)
-
-
 def _shard_generator(generator, state, d, device):
     if generator is None:
         return None
@@ -153,11 +145,14 @@ class DataParallelStep:
     ``post_update`` (BUIR's target EMA) runs after each optimizer step.
     ``optimizer`` is the optimizer the step uses: on a model axis that shards
     a table, ``optimizer`` rebuilt (its class and defaults) over the
-    unsharded parameters and the table shards."""
+    unsharded parameters and the table shards. ``compute_dtype``
+    ("bfloat16") runs the loss in that type over float32 master weights."""
 
-    def __init__(self, model, optimizer, mesh=None, param_rule=None, prepare=None, post_update=None):
+    def __init__(self, model, optimizer, mesh=None, param_rule=None, prepare=None, post_update=None,
+                 compute_dtype=None):
         self.model, self.optimizer, self.mesh = model, optimizer, mesh
         self.prepare, self.post_update = prepare, post_update
+        self.loss_fn = loss_with_dtype(model, compute_dtype)
         self.tables, self.n_rows = {}, {}
         self.mode = "local" if mesh is None or mesh.size == 1 else (
             "data" if mesh.shape[MODEL_AXIS] == 1 else "model")
@@ -170,6 +165,8 @@ class DataParallelStep:
         if self.mode == "data":
             self.devices = [row[0] for row in mesh.devices]
             self.replicas = Replicas(model, self.devices)
+            self.shard_loss = {device: loss_with_dtype(m, compute_dtype)
+                               for device, m in self.replicas.by_device.items()}
             self.shard_params = {device: [dict(m.named_parameters())[names[id(p)]] for p in self.params]
                                  for device, m in self.replicas.by_device.items()}
             return
@@ -188,7 +185,6 @@ class DataParallelStep:
             kept = [p for p in self.params if id(p) not in sharded]
             self.optimizer = type(optimizer)(kept + [s for shards in self.tables.values() for s in shards],
                                              **optimizer.defaults)
-            self._loss = _Loss(model)
 
     def __call__(self, batch, generator=None):
         if self.mode == "data":
@@ -196,22 +192,20 @@ class DataParallelStep:
         if self.prepare is not None:
             batch = self.prepare(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        if self.tables:
-            loss = functional_call(self._loss, self._gathered(), (batch, generator))
-        else:
-            loss = self.model.loss(batch, generator)
+        loss = self.loss_fn(batch, generator, self._gathered())
         loss.backward()
         self.optimizer.step()
         self._post_update()
         return loss.detach()
 
     def _gathered(self):
-        """{"model.<table>": the whole table}, assembled from its row shards
-        by the ring all-gather kernel, on the model's device."""
+        """{table name: the whole table}, assembled from its row shards by
+        the ring all-gather kernel, on the model's device (float32: a cast
+        to the compute dtype follows the gather)."""
         out = {}
         for name, shards in self.tables.items():
             blocks = ring_allgather(shards)[0]  # (M, rows a shard, d), data row 0's first device
-            out[f"model.{name}"] = blocks.reshape(-1, blocks.shape[-1])[: self.n_rows[name]]
+            out[name] = blocks.reshape(-1, blocks.shape[-1])[: self.n_rows[name]]
         return out
 
     def _data_step(self, batch, generator):
@@ -223,7 +217,7 @@ class DataParallelStep:
             local = {key: value[d].to(device) for key, value in parts.items()}
             if self.prepare is not None:
                 local = self.prepare(local)
-            loss = self.replicas[device].loss(local, _shard_generator(generator, state, d, device))
+            loss = self.shard_loss[device](local, _shard_generator(generator, state, d, device))
             grads = torch.autograd.grad(loss, self.shard_params[device], allow_unused=True)
             results.append((loss.detach(), grads))
         used = [g is not None for g in results[0][1]]

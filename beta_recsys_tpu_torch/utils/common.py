@@ -1,0 +1,172 @@
+"""Host-side helpers: the npz frame codec, seeding, CLI arguments, the
+results CSV, timing and JSON.
+
+Counterpart of ``beta_recsys_tpu/utils/common.py`` without pandas: a frame is
+a dict of equal-length numpy columns keyed by the column names of
+``utils.constants``. ``save_dataframe_as_npz`` writes the JAX package's keys,
+dtypes and ``storable`` rules and ``get_dataframe_from_npz`` reads them, so
+each package reads the other's split cache.
+"""
+
+import csv
+import json
+import os
+import random
+import time
+from functools import wraps
+
+import numpy as np
+
+from .constants import (
+    DEFAULT_ITEM_COL,
+    DEFAULT_ORDER_COL,
+    DEFAULT_RATING_COL,
+    DEFAULT_TIMESTAMP_COL,
+    DEFAULT_USER_COL,
+)
+
+_NPZ_COLUMNS = {
+    "user_ids": DEFAULT_USER_COL,
+    "item_ids": DEFAULT_ITEM_COL,
+    "ratings": DEFAULT_RATING_COL,
+    "timestamps": DEFAULT_TIMESTAMP_COL,
+    "order_ids": DEFAULT_ORDER_COL,
+}
+
+
+def ensure_dir(path):
+    """Create the directory ``path`` if it is missing."""
+    if path and not os.path.exists(path):
+        os.makedirs(path, exist_ok=True)
+
+
+def set_seed(seed):
+    """Seed Python's and numpy's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def _storable(arr, prefer_int=False):
+    """Object columns (string ids) as fixed-width unicode, or int64 where
+    ``prefer_int`` and they parse, so ``np.load`` needs no pickle."""
+    arr = np.asarray(arr)
+    if arr.dtype == object:
+        if prefer_int:
+            try:
+                return arr.astype(np.int64)
+            except (ValueError, TypeError, OverflowError):
+                pass
+        return arr.astype(str)
+    return arr.astype(np.int64) if prefer_int else arr
+
+
+def save_dataframe_as_npz(frame, data_file):
+    """Write a frame to a compressed npz: user_ids, item_ids, ratings
+    (float32), order_ids where the frame has orders, and timestamps (int64,
+    or float32 zeros where the frame has none)."""
+    data = {
+        "user_ids": _storable(frame[DEFAULT_USER_COL]),
+        "item_ids": _storable(frame[DEFAULT_ITEM_COL]),
+        "ratings": np.asarray(frame[DEFAULT_RATING_COL]).astype(np.float32),
+    }
+    if DEFAULT_ORDER_COL in frame:
+        data["order_ids"] = _storable(frame[DEFAULT_ORDER_COL], prefer_int=True)
+    if DEFAULT_TIMESTAMP_COL in frame:
+        data["timestamps"] = _storable(frame[DEFAULT_TIMESTAMP_COL], prefer_int=True)
+    else:
+        data["timestamps"] = np.zeros_like(data["ratings"])
+    ensure_dir(os.path.dirname(data_file))
+    np.savez_compressed(data_file, **data)
+
+
+def get_dataframe_from_npz(data_file):
+    """One npz file -> {column name: numpy array}, the inverse of
+    ``save_dataframe_as_npz`` (the JAX package's files too)."""
+    with np.load(data_file, allow_pickle=False) as z:
+        frame = {col: z[key] for key, col in _NPZ_COLUMNS.items() if key in z}
+    for col in (DEFAULT_USER_COL, DEFAULT_ITEM_COL, DEFAULT_RATING_COL):
+        if col not in frame:
+            raise ValueError(f"{data_file} has no {col} column")
+    return frame
+
+
+def update_args(config, args):
+    """Override a raw config dict's entries from a flat dict of arguments: a
+    key that is not None replaces the matching key in every section that has
+    it."""
+    for key, value in args.items():
+        if value is None:
+            continue
+        for section in config:
+            if isinstance(config[section], dict) and key in config[section]:
+                config[section][key] = value
+
+
+def print_dict_as_table(dic, tag=None, columns=("keys", "values")):
+    """Print a dict as a two-column table; returns the text."""
+    rows = [f"{k!s:>24} | {v!s}" for k, v in sorted(dic.items(), key=lambda x: str(x[0]))]
+    out = "\n".join(([tag] if tag else []) + [f"{columns[0]:>24} | {columns[1]}", "-" * 48] + rows)
+    print(out)
+    return out
+
+
+def _csv_value(value):
+    """A value as pandas' ``to_csv`` writes it: shortest round-trip reprs,
+    None and NaN empty."""
+    if value is None or (isinstance(value, float) and value != value):
+        return ""
+    if isinstance(value, np.generic):
+        value = value.item()
+    return str(value) if isinstance(value, float) else value
+
+
+def save_to_csv(rows, result_file):
+    """Append ``rows`` (a list of dicts, or one dict) to a CSV, creating it
+    with a header if absent. A column the file lacks is added at the end,
+    and earlier rows leave it empty, as pandas' concat of the file and the
+    rows writes them."""
+    rows = [rows] if isinstance(rows, dict) else list(rows)
+    ensure_dir(os.path.dirname(result_file))
+    prior, fields = [], []
+    if os.path.exists(result_file):
+        with open(result_file, newline="") as f:
+            reader = csv.DictReader(f)
+            fields = list(reader.fieldnames or [])
+            prior = list(reader)
+    for row in rows:
+        fields += [k for k in row if k not in fields]
+    with open(result_file, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=fields)
+        writer.writeheader()
+        writer.writerows(prior)
+        writer.writerows({k: _csv_value(v) for k, v in row.items()} for row in rows)
+
+
+def timeit(method):
+    """Decorator printing the wall-clock time of each call (ms)."""
+
+    @wraps(method)
+    def wrapper(*args, **kw):
+        t0 = time.time()
+        result = method(*args, **kw)
+        print(f"Execute [{method.__name__}] method costing {(time.time() - t0) * 1000:2.2f} ms")
+        return result
+
+    return wrapper
+
+
+def str2bool(v):
+    """Parse a human bool string."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise ValueError(f"Boolean value expected, got {v!r}.")
+
+
+def write_json(obj, path):
+    ensure_dir(os.path.dirname(path))
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, default=str)

@@ -84,7 +84,7 @@ Phases, each printed with the seconds elapsed:
  22. the same for NGCF (message dropout 0.1, lr 0.01), without the repeat.
      Phases 20-22 launch none of the kernels and are profiled
      (``--profile graph-models``: a test() and a recommend() of each
-     checkpoint; an epoch's batch forming and 5 steps of each model after
+     checkpoint; an epoch's batch forming and 3 steps of each model after
      2 to warm up), printing a WARNING where the profiler recorded no CUDA
      events;
  23. serve the JAX-trained seed-0 UltraGCN checkpoint: load -> test() ->
@@ -106,7 +106,7 @@ Phases, each printed with the seconds elapsed:
      for bit, and the peak device memory of its test() (scored in blocks of
      pairs). Phases 23-25 launch none of the kernels and are profiled
      (``--profile capped-models``: UltraGCN's test() and
-     recommend(), an epoch's batch forming and 5 steps of each model after
+     recommend(), an epoch's batch forming and 3 steps of each model after
      2 to warm up, and CMN's test()); positives/s of every training;
  26. SimGCL and SGL (both_side InfoNCE over two views of edge dropout a
      step, drawn on the device), 27. BUIR (online and target encoders, the
@@ -126,7 +126,7 @@ Phases, each printed with the seconds elapsed:
      bit; LCFN's P and Q from a second eigendecomposition on a fresh data
      object bit for bit. Phases 26-27 launch none of the kernels and are
      profiled (``--profile ssl-models``: an epoch's
-     batch forming and 5 steps of each model after 2 to warm up);
+     batch forming and 3 steps of each model after 2 to warm up);
      positives/s of every training;
  28. TiSASRec at its shipped config (emb 64, 2 blocks, maxlen 50, time_span
      256, dropout 0.2, batch 128) through TiSASRec(cfg).train(data) on the
@@ -164,13 +164,13 @@ Phases, each printed with the seconds elapsed:
      package's ten-seed bands at that cap, its first epoch twice bit for
      bit, the trained model served as the port serves it on the CPU;
  33. VBCAR (variational encoders over seeded random features, six latent
-     samples a step; 10 epochs) and TVBR (VBCAR conditioned on 4 time
+     samples a step; 5 epochs) and TVBR (VBCAR conditioned on 4 time
      buckets; 5 epochs) the same way, each held by its band (or, where the
      band's lower edge lies below UNTRAINED_NDCG, by its first 5 steps
      against the CPU's).
      Phases 28-33 launch none of the kernels and are profiled
      (``--profile seq-models grocery-models``: an epoch's batch forming
-     and 5 steps of each model after 2 to warm up, 3 steps for phases
+     and 3 steps of each model after 2 to warm up, as for phases
      32-33; the Triple2vec checkpoint's test() and recommend(), each KNN's
      test()); triples/s.
      The profiles of phases 20-33 run in one child process after phase 33
@@ -219,7 +219,21 @@ Phases, each printed with the seconds elapsed:
      and full-catalog evaluators against one device's (1e-6) for MF and
      SASRec; 1 + 1 resumed epochs equal to 2 straight, bit for bit, on the
      (1, 4) ring-lookup sparse mesh and the (2, 2) dense mesh;
- 38. a JSON line of every kernel with its launches on each path, counted
+ 38. mixed precision, the offline pipeline and the run layer: the flash
+     forward and backward in bfloat16 at the checkpoint config's training
+     shape against their plain versions, with times; SASRec at the
+     checkpoint's config with model.compute_dtype "bfloat16" (its forward
+     and backward through the kernels in bfloat16): its first 5 steps
+     against the same steps through the port on the CPU in bfloat16 (2e-2),
+     2 epochs' sequences/s beside phase 8's float32 rate, and test() of the
+     trained model against the CPU's (1e-3); MF with lazy Adam in bfloat16
+     (fused_rowadam under bfloat16 rows, float32 gradients), MF_BF16_EPOCHS
+     epochs, seed 0 inside the JAX package's bfloat16 band at that cap,
+     examples/s beside phase 3's; the host library built by g++ and the
+     structured interactions and leave_one_out split regenerated equal to
+     the committed files; the train_model CLI on cuda in a subprocess and
+     mf_default.json's two-trial grid through model.tune;
+ 39. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
@@ -233,6 +247,7 @@ profiles and no result line. Imports nothing of JAX or of the JAX package.
 import argparse
 import collections
 import copy
+import csv
 import json
 import os
 import subprocess
@@ -276,8 +291,9 @@ from beta_recsys_tpu_torch.core.train_engine import (  # noqa: E402
 from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
 from beta_recsys_tpu_torch.data.grocery_data import GroceryData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data  # noqa: E402
-from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets  # noqa: E402
+from beta_recsys_tpu_torch.datasets import host  # noqa: E402
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data  # noqa: E402
+from beta_recsys_tpu_torch.datasets.synthetic import SyntheticStructured, add_synthetic_baskets  # noqa: E402
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
 from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
 from beta_recsys_tpu_torch.ops.topk import (  # noqa: E402
@@ -295,6 +311,7 @@ from beta_recsys_tpu_torch.models import vaecf as vaecf_model  # noqa: E402
 from beta_recsys_tpu_torch.models import vbcar as vbcar_model  # noqa: E402
 from beta_recsys_tpu_torch.ops import attention as port_attention  # noqa: E402
 from beta_recsys_tpu_torch.ops import activations as port_activations  # noqa: E402
+from beta_recsys_tpu_torch.ops.kernels import flash_attention as flash_attention_module  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
     flash_causal_attention_bwd,
@@ -372,9 +389,9 @@ SPARSE_BAND = {"valid": (0.20631387680768967, 0.002780269790554314),
                "test": (0.1743064731359482, 0.0070542290529480465)}
 # Phase 3 runs MF_SPARSE_EPOCHS epochs (the JAX seeds' best epochs are 12-44
 # of 33-65 run to early stop), against the same seeds read at that cap.
-MF_SPARSE_EPOCHS = 15
-SPARSE_BAND_AT_CAP = {"valid": (0.2006065234541893, 0.005027032735413935),
-                      "test": (0.1752294883131981, 0.0056038494808320315)}
+MF_SPARSE_EPOCHS = 10
+SPARSE_BAND_AT_CAP = {"valid": (0.1957789182662964, 0.0029097835271267155),
+                      "test": (0.17343872487545015, 0.007819176011082916)}
 DENSE_BAND = {"test": (0.1893, 0.0097)}
 # Phase 4's dense trainer stops at MF_DENSE_EPOCHS: seed 0's run to early
 # stop had its best epoch at 14 of 35, so the capped run's best, and its
@@ -620,22 +637,22 @@ EXPECTED_VAECF_METRICS = {"ndcg@10": 0.155424, "recall@10": 0.397667, "precision
 # The grocery models (phases 32-33) on the structured split with the
 # synthetic baskets of examples/parity_check.py: each recommender, shipped
 # config and the epochs its training runs (the cap its JAX band is read at;
-# TVBR's step costs twice VBCAR's, so it stops at 5).
+# VBCAR's and TVBR's steps cost 2-4 Triple2vec's, so they stop at 5).
 GROCERY_FAMILY = {
     "Triple2vec": (Triple2vec, "configs/triple2vec_default.json", 10),
-    "VBCAR": (VBCAR, "configs/vbcar_default.json", 10),
+    "VBCAR": (VBCAR, "configs/vbcar_default.json", 5),
     "TVBR": (TVBR, "configs/tvbr_default.json", 5),
 }
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the
 # JAX package's training at each shipped config, read at GROCERY_FAMILY's
-# caps (10, 10, 5) from runs of 20 epochs: `JAX_PLATFORMS=cpu python
-# port_tools/jax_grocery_band.py`. The JAX engine draws its triples
-# unseeded; the port from the run's seed.
+# caps (10, 5, 5) from runs of 20 epochs: `JAX_PLATFORMS=cpu python
+# port_tools/jax_grocery_band.py` (VBCAR's from a run read at cap 5). The
+# JAX engine draws its triples unseeded; the port from the run's seed.
 GROCERY_BANDS = {
     "Triple2vec": {"valid": (0.2675051152706146, 0.005279386489104838),
                    "test": (0.25424200743436814, 0.006551544384072174)},
-    "VBCAR": {"valid": (0.2751183331012726, 0.004591350329554184),
-              "test": (0.2673242881894112, 0.00876228929579379)},
+    "VBCAR": {"valid": (0.2482302561402321, 0.005767608691856849),
+              "test": (0.23380966633558273, 0.004666787336907868)},
     "TVBR": {"valid": (0.2315541088581085, 0.010528498129963258),
              "test": (0.2197718933224678, 0.00837311474182661)},
 }
@@ -709,10 +726,35 @@ RETRIEVAL_ITEM_BLOCK = 8192
 RECALL_TARGET = 0.95  # the JAX package's default recall_target for the bf16 scores
 RESUME_EPOCHS = 1  # phase 36: this many epochs, resumed for as many more, against twice as many straight
 DENSE_MESH_EPOCHS = 2  # phase 37's mesh runs held against their references
+BF16_STEPS = 5  # phase 38: SASRec's bfloat16 steps, card against the CPU
+BF16_TOL = 2e-2  # phase 38: those steps' losses (relative), parameters and moments, bfloat16 on both sides
+BF16_SASREC_EPOCHS = 2  # phase 38's bfloat16 SASRec training
+BF16_TEST_TOL = 1e-3  # phase 38: test() of the bfloat16 SASRec, card against the CPU
+MF_BF16_EPOCHS = 10  # phase 38's bfloat16 lazy-Adam MF training
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's MF + BPR lazy-Adam training in bfloat16 (model.compute_dtype),
+# read at MF_BF16_EPOCHS: `JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py
+# --compute_dtype bfloat16`.
+MF_BF16_BAND = {"valid": (0.1963813856244087, 0.003593818307537878),
+                "test": (0.17418453246355056, 0.007618827757504749)}
+RATES = {}  # phase -> its training's examples or sequences a second, each epoch
 SASREC_MESH_STEPS = 5  # phase 37: SASRec's steps at the shipped dropout on a (4, 1) mesh, card against the CPU
 MESH_EVAL_TOL = 1e-6  # phase 37: a mesh's evaluators against one device's
 
 T0 = time.perf_counter()
+
+
+PHASE_SECONDS = {}  # phase -> its seconds in this run (``mark``)
+_RUNNING = [None, 0.0]  # the phase running since the last mark, and when it began
+
+
+def mark(phase=None):
+    """Close the phase running since the last mark, its seconds into
+    PHASE_SECONDS, and start ``phase`` (None: start none)."""
+    now = time.perf_counter()
+    if _RUNNING[0] is not None:
+        PHASE_SECONDS[_RUNNING[0]] = round(PHASE_SECONDS.get(_RUNNING[0], 0.0) + now - _RUNNING[1], 2)
+    _RUNNING[:] = [phase, now]
 
 
 def log(phase, msg):
@@ -1192,7 +1234,7 @@ def train_mf(phase, seed, root_dir, **model):
     launches = fused_rowadam.launches
     res = rec.test()
     engine = rec.engine
-    rates = [engine.epoch_fn.padded_size / s for s in engine.epoch_seconds]
+    rates = RATES[phase] = [engine.epoch_fn.padded_size / s for s in engine.epoch_seconds]
     log(phase, f"{len(rates)} epochs of {engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size}, "
         f"best epoch {result['best_epoch']}, train() {result['run_time']:.2f} s; examples/s per epoch: "
         + ", ".join(f"{r:.0f}" for r in rates))
@@ -1491,7 +1533,8 @@ def train_sasrec(phase, seed, root_dir, data, config=None, mesh_devices=None, **
     check_launches("flash backward", phase, counts["bwd"], blocks * shards * steps)
     check_launches("flash forward in training steps", phase, counts["steps"], blocks * shards * steps)
     check_launches("flash forward in evaluations", phase, counts["eval"], blocks * n_data * evaluators * epochs)
-    rates = [engine.epoch_fn.num_batches * engine.epoch_fn.batch_size / s for s in engine.epoch_seconds]
+    rates = RATES[phase] = [engine.epoch_fn.num_batches * engine.epoch_fn.batch_size / s
+                            for s in engine.epoch_seconds]
     log(phase, f"{epochs} epochs of {engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size} sequences "
         f"(maxlen {rec.model.maxlen}, dh {rec.model.emb_dim // rec.model.num_heads}), best epoch "
         f"{result['best_epoch']}, train() {result['run_time']:.2f} s; sequences/s per epoch: "
@@ -3823,6 +3866,192 @@ def dense_mesh_phases(seed, root_dir):
     return counts
 
 
+# -- mixed precision, the offline pipeline and the run layer (phase 38) ---------------
+
+
+class _DtypeRecorder:
+    """A flash wrapper that records the dtype of each call's q, calls the
+    wrapper, and forwards its ``launches`` to the wrapper's own count."""
+
+    def __init__(self, name, fn, seen):
+        object.__setattr__(self, "_name", name)
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_seen", seen)
+
+    def __call__(self, q, *args, **kwargs):
+        self._seen[(self._name, str(q.dtype).replace("torch.", ""))] += 1
+        return self._fn(q, *args, **kwargs)
+
+    def __getattr__(self, key):
+        return getattr(self._fn, key)
+
+    def __setattr__(self, key, value):
+        setattr(self._fn, key, value)
+
+
+class FlashDtypes:
+    """Inside the block, the dtypes each flash wrapper is called with, by
+    kernel: the wrappers are wrapped where the autograd function finds them,
+    and their launch counts stay their own."""
+
+    def __enter__(self):
+        self.seen = collections.Counter()
+        self.real = {name: getattr(flash_attention_module, name)
+                     for name in ("flash_causal_attention", "flash_causal_attention_bwd")}
+        for name, fn in self.real.items():
+            setattr(flash_attention_module, name, _DtypeRecorder(name, fn, self.seen))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(flash_attention_module, name, fn)
+
+
+def only_bf16(phase, seen, kernels):
+    """Fail unless every call of ``kernels`` in ``seen`` was bfloat16 and
+    each was called."""
+    for kernel in kernels:
+        dtypes = {dtype: n for (name, dtype), n in seen.items() if name == kernel}
+        if set(dtypes) != {"bfloat16"}:
+            fail(f"{phase}: {kernel} ran in {dtypes}, not bfloat16 alone")
+
+
+def median_rate(phase):
+    rates = RATES[phase]
+    return float(np.median(rates[1:] if len(rates) > 1 else rates))
+
+
+def bf16_sasrec(seed, root_dir, gen):
+    """Phase 38's SASRec: the kernels in bfloat16 at the training shape, the
+    first steps against the CPU's, 2 epochs and test() against the CPU's.
+    Returns (``train_sasrec``'s counts of the training, the kernels' counts
+    of its test() by path, the timed bfloat16 row)."""
+    phase = "sasrec-bf16"
+    row = compare_flash_train(256, 100, 32, torch.bfloat16, DROPOUT_RATE, gen)
+    timed = time_flash_train(256, 100, 32, torch.bfloat16, DROPOUT_RATE, gen)
+    log(phase, f"256x100x32 bfloat16 at rate {DROPOUT_RATE}: forward |d| {row['max_abs_err']:.3g}, backward |d| "
+        f"{row['bwd_max_abs_err']:.3g} (limits {TOL[torch.bfloat16]['out']}, {GRAD_TOL[torch.bfloat16]}), masks "
+        "bit-equal to the plain mask")
+    data = SequentialData(load_split_data(SPLIT, n_test=1))
+    start, engine = built_engine(SASRec(sasrec_config(seed, root_dir, compute_dtype="bfloat16")), data)
+    diff, _, eps_set = steps_match_cpu(phase, start, engine, data, BF16_STEPS, BF16_TOL)
+    log(phase, f"{BF16_STEPS} Adam steps in bfloat16 from the initial weights equal the CPU's bfloat16 steps on the "
+        f"same batches, dropout masks and ReLU decisions: {describe_steps(diff, BF16_TOL)}{eps_set}")
+    counts = {}
+    with FlashDtypes() as dtypes:
+        rec, result, train_counts = train_sasrec(phase, seed, root_dir, data, compute_dtype="bfloat16",
+                                                 max_epoch=BF16_SASREC_EPOCHS)
+        zero_kernel_counts()
+        res = rec.test()
+        torch.cuda.synchronize()
+        counts[f"{phase}-test"] = kernel_counts()
+    only_bf16(phase, dtypes.seen, ("flash_causal_attention", "flash_causal_attention_bwd"))
+    if any(p.dtype != torch.float32 for p in rec.model.parameters()):
+        fail(f"{phase}: a parameter left float32")
+    cpu = SASRec(rec.config, device="cpu").load(result["model_save_dir"], data)
+    want = cpu.test()
+    gap = max(abs(res[key] - want[key]) for key in want)
+    if gap > BF16_TEST_TOL:
+        fail(f"{phase}: test() on the card differs from the CPU's by {gap} (limit {BF16_TEST_TOL})")
+    bf16, f32 = median_rate(phase), median_rate("sasrec-train")
+    log(phase, f"flash calls by dtype {dict(dtypes.seen)}; sequences/s {bf16:.1f} in bfloat16 against "
+        f"{f32:.1f} in float32 (phase 8, this call): {bf16 / f32:.3f}x; test() within {gap:.3g} of the CPU's "
+        f"bfloat16 test(): " + ", ".join(f"{k} {res[k]:.6f}" for k in EXPECTED_METRICS))
+    return train_counts, counts, timed
+
+
+def bf16_mf(seed, root_dir):
+    """Phase 38's MF: lazy Adam in bfloat16 through fused_rowadam. Returns
+    the kernels' counts on its path."""
+    phase = "mf-bf16"
+    zero_kernel_counts()
+    rec, result, launches, res = train_mf(phase, seed, root_dir, sparse_optim=True, row_update="fused",
+                                          compute_dtype="bfloat16", max_epoch=MF_BF16_EPOCHS)
+    steps = len(rec.engine.bookkeeper.history) * rec.engine.epoch_fn.num_batches
+    check_launches("fused_rowadam", phase, launches, steps)
+    moments = [t for pair in rec.engine.epoch_fn.state["moments"].values() for t in pair]
+    if any(t.dtype != torch.float32 for t in [*rec.model.parameters(), *moments]):
+        fail(f"{phase}: a parameter or moment left float32")
+    bf16, f32 = median_rate(phase), median_rate("mf-sparse")
+    log(phase, f"(cap {MF_BF16_EPOCHS} epochs) " + in_band("best valid ndcg@10", result["valid_metric"],
+                                                           MF_BF16_BAND["valid"])
+        + "; " + band_position("test ndcg@10", res["ndcg@10"], MF_BF16_BAND["test"])
+        + f"; examples/s {bf16:.1f} in bfloat16 against {f32:.1f} in float32 (phase 3, this call): "
+        f"{bf16 / f32:.3f}x")
+    return {f"{phase}-train": {**kernel_counts(), "fused_rowadam": launches}}
+
+
+def pipeline_and_run_layer(seed, root_dir, device="cuda"):
+    """Phase 38's host side: the pipeline regenerates the committed split on
+    this host (no pandas here), the train_model CLI runs on ``device`` in a
+    subprocess, and model.tune trains mf_default.json's grid there. Returns
+    the kernels' counts by path."""
+    phase = "pipeline"
+    t0 = time.perf_counter()
+    lib, secs = host.build()
+    log(phase, f"host library {os.path.relpath(lib, REPO)} built by g++ in {secs:.2f} s")
+    committed = os.path.join(REPO, "datasets", "synthetic_structured", "processed")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.random.seed(seed)
+        dataset = SyntheticStructured(root_dir=tmp)
+        dataset.make_leave_one_out(n_negative=100, n_test=1)
+        files = ["synthetic_structured_interaction.npz"] + [f"leave_one_out/full_n_neg_100/{name}.npz"
+                                                           for name in ("train", "valid", "test")]
+        for rel in files:
+            with np.load(os.path.join(committed, rel)) as want, \
+                    np.load(os.path.join(dataset.processed_path, rel)) as got:
+                if list(want.keys()) != list(got.keys()) or any(
+                        want[k].dtype != got[k].dtype or want[k].shape != got[k].shape
+                        or not np.array_equal(want[k], got[k]) for k in want):
+                    fail(f"{phase}: the regenerated {rel} differs from the committed file")
+    log(phase, f"{', '.join(files)} regenerated equal to the committed files, array for array "
+        f"({time.perf_counter() - t0:.2f} s with the build)")
+
+    counts = {}
+    phase = "cli"
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    cmd = [sys.executable, "-m", "beta_recsys_tpu_torch.cli.train_model", "--model", "mf", "--max_epoch", "1",
+           "--dataset", "synthetic_structured", "--n_test", "1", "--root_dir", root_dir, "--device", device]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    result_csv = os.path.join(root_dir, "results", "mf_result.csv")
+    if out.returncode != 0 or not os.path.exists(result_csv) or "test result:" not in out.stdout:
+        fail(f"{phase}: train_model exited {out.returncode}: {out.stderr[-2000:]}")
+    with open(result_csv) as f:
+        rows = list(csv.DictReader(f))
+    log(phase, f"python -m beta_recsys_tpu_torch.cli.train_model --model mf --max_epoch 1 --device {device}: exit 0 in "
+        f"{time.perf_counter() - t0:.2f} s, {os.path.relpath(result_csv, root_dir)} row ndcg@10 "
+        f"{float(rows[-1]['ndcg@10']):.6f}")
+
+    phase = "tune"
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    cfg = mf_config(seed, root_dir, max_epoch=1, tune=True)
+    result = MatrixFactorization(cfg, device=device).train(mf_split())
+    torch.cuda.synchronize()
+    counts[phase] = kernel_counts()
+    grid = result["tune_result"]
+    table = os.path.join(root_dir, cfg.system.get("tune_dir", "tune_results/"), "tune_result.csv")
+    if len(grid) != len(cfg.tunable[0]["values"]) or not os.path.exists(table):
+        fail(f"{phase}: {len(grid)} trials for the grid {cfg.tunable}, table {os.path.exists(table)}")
+    log(phase, f"model.tune over {[dict(t) for t in cfg.tunable]} at max_epoch 1 on {device}, in turn: "
+        + ", ".join(f"{r['loss']} valid ndcg@10 {r['valid_metric']:.6f}" for r in grid)
+        + f"; tune_result.csv written ({time.perf_counter() - t0:.2f} s)")
+    return counts
+
+
+def mixed_precision_phases(seed, root_dir, gen):
+    """Phase 38. Returns (the bfloat16 SASRec training's flash counts, the
+    kernels' counts by path, the timed bfloat16 flash row at the training
+    shape)."""
+    t0 = time.perf_counter()
+    train_counts, counts, timed = bf16_sasrec(seed, root_dir, gen)
+    counts.update(bf16_mf(seed, root_dir))
+    counts.update(pipeline_and_run_layer(seed, root_dir))
+    log("mixed-precision", f"phase 38 took {time.perf_counter() - t0:.2f} s")
+    return train_counts, counts, timed
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
@@ -3830,7 +4059,7 @@ PROFILE_SEQ = "seq-models"  # phases 28-30's profiles
 PROFILE_GROCERY = "grocery-models"  # phases 31-33's profiles
 # All five run in one child process after phase 33 (one process start, not five).
 PROFILES = (PROFILE_GRAPH, PROFILE_CAPPED, PROFILE_SSL, PROFILE_SEQ, PROFILE_GROCERY)
-PROFILED_CAPPED_STEPS = 5  # training steps profiled for each model of phases 21-22 and 24-30
+PROFILED_CAPPED_STEPS = 3  # training steps profiled for each model of phases 21-22 and 24-30
 PROFILE_WARMUP_STEPS = 2  # steps run before each profiled window
 
 
@@ -3942,6 +4171,7 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
+    mark("1 build")
     sharded_only = args.sharded_only or args.ring_only
     built = _build.build_all(["ring_allgather"] if sharded_only
                              else ["flash_attention_fwd", "flash_attention_bwd", "rowadam", "ring_allgather"])
@@ -3967,6 +4197,7 @@ def main():
             finish(smi, [ring_entry(ring_rows, ring_launches)])
         return 0
 
+    mark("2 kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4018,33 +4249,55 @@ def main():
     for key, row in rowadam_rows.items():
         log("rowadam", f"{key}: {json.dumps(row)}")
 
+    mark("7 default's data")
     t0 = time.perf_counter()
     ml1m = SequentialData(ml1m_shaped_split(args.seed))
     log("default", f"synthetic split: {ml1m.n_users} users, {ml1m.n_items} items, "
         f"{len(ml1m.train[DEFAULT_USER_COL])} train rows ({time.perf_counter() - t0:.2f} s)")
     with tempfile.TemporaryDirectory() as root_dir:
+        mark("3 mf-sparse")
         adam_launches = {"mf_sparse_train": mf_sparse_training(args.seed, root_dir)}
         bwd_launches = {}
+        mark("4 mf-dense")
         mf_dense_training(args.seed, root_dir)
+        mark("5 mf-serve")
         serve_mf_checkpoint(root_dir)
-        launches = {
-            "checkpoint": serve_checkpoint(root_dir),
-            "default": serve_default_config(args.seed, root_dir, ml1m),
-        }
+        mark("6 checkpoint")
+        launches = {"checkpoint": serve_checkpoint(root_dir)}
+        mark("7 default")
+        launches["default"] = serve_default_config(args.seed, root_dir, ml1m)
+        mark("8 sasrec-train")
         train_counts = sasrec_training(args.seed, root_dir)
+        mark("9 shipped")
         train_counts["shipped_shape"] = sasrec_shipped_shape(args.seed, root_dir, ml1m)
+        mark("10 head dims")
         train_counts.update(sasrec_head_dims(args.seed, root_dir))
+        mark("11-16 ring and sharded MF")
         ring_rows, ring_launches = sharded_phases(args.seed, root_dir)
+        mark("17-19 NCF family")
         ncf_phases(args.seed, root_dir)
+        mark("20-22 graph")
         graph_counts = graph_phases(args.seed, root_dir)
+        mark("23-25 multineg and CMN")
         graph_counts.update(capped_phases(args.seed, root_dir))
+        mark("26-27 self-supervised")
         graph_counts.update(ssl_phases(args.seed, root_dir))
+        mark("28-30 sequence and VAE")
         graph_counts.update(seq_phases(args.seed, root_dir))
+        mark("31-33 grocery and KNN")
         graph_counts.update(grocery_phases(args.seed, root_dir))
+        mark("34-36 serving and resume")
         graph_counts.update(serving_and_resume_phases(args.seed, root_dir))
+        mark("37 dense mesh")
         graph_counts.update(dense_mesh_phases(args.seed, root_dir))
+        mark("38 mixed precision, pipeline, run layer")
+        train_counts["sasrec_bf16"], bf16_counts, bf16_train_row = mixed_precision_phases(args.seed, root_dir, gen)
+        graph_counts.update(bf16_counts)
+        mark("profiles of 20-33 (one child)")
         profiled_in_child(PROFILES, args.seed)
-    for path, counts in graph_counts.items():  # phases 17-37: 0 but 34's flash, 36's fused_rowadam and 37's
+        mark()
+    log("time", "seconds by phase: " + json.dumps(PHASE_SECONDS))
+    for path, counts in graph_counts.items():  # phases 17-38: 0 but 34's flash, 36's fused_rowadam, 37's and 38's
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]
@@ -4078,6 +4331,16 @@ def main():
         "timed_training": [{"shape": r["shape"], "rate": r["rate"], "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
                             "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
                             "library_ms": r["fwd_library_ms"]} for r in timed_train.values()],
+        "bfloat16": {
+            "max_abs_err": max([r["max_abs_err"] for key, r in rows.items() if key[2] == torch.bfloat16]
+                               + [r["max_abs_err"] for r in train_rows if r["dtype"] == "bfloat16"]),
+            "serving": {k: rows[(1886, 100, torch.bfloat16)][k]
+                        for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "training": {"shape": bf16_train_row["shape"], "rate": bf16_train_row["rate"],
+                         "ms": bf16_train_row["fwd_ms"], "plain_ms": bf16_train_row["fwd_plain_ms"],
+                         "bound_ms": bf16_train_row["fwd_bound_ms"], "bound_by": bf16_train_row["fwd_bound_by"],
+                         "library_ms": bf16_train_row["fwd_library_ms"]},
+        },
     }, {
         "name": "flash_causal_attention_bwd",
         "route": "cuda",
@@ -4099,6 +4362,14 @@ def main():
                    "plain_ms": r["bwd_plain_ms"],
                    "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
                    "library_ms": r["bwd_library_ms"]} for r in timed_train.values()],
+        "bfloat16": {
+            "max_abs_err": max(r["bwd_max_abs_err"] for r in train_rows if r["dtype"] == "bfloat16"),
+            "training": {"shape": bf16_train_row["shape"], "rate": bf16_train_row["rate"],
+                         "ms": bf16_train_row["bwd_ms"], "device_ms": bf16_train_row["bwd_device_ms"],
+                         "plain_ms": bf16_train_row["bwd_plain_ms"], "bound_ms": bf16_train_row["bwd_bound_ms"],
+                         "bound_by": bf16_train_row["bwd_bound_by"],
+                         "library_ms": bf16_train_row["bwd_library_ms"]},
+        },
     }, {
         "name": "fused_rowadam",
         "route": "cuda",

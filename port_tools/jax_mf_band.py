@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """The JAX package's MF + BPR lazy-Adam band on the structured synthetic split.
 
-    JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py
+    JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py [--compute_dtype bfloat16]
 
 Trains ``beta_recsys_tpu``'s MatrixFactorization from
 ``configs/mf_default.json`` with ``sparse_optim`` true and ``row_update``
 "xla" (the arithmetic of "fused", ``tests/test_rowadam_kernel.py``) on
 ``parity_runs/datasets/synthetic_structured`` (leave-one-out, 100 negatives,
-one evaluation copy) once for each of seeds 0-9, with early stop, and prints
+one evaluation copy) once for each of seeds 0-9, with early stop (with
+``--compute_dtype``, the model's compute dtype: bfloat16 mixed precision),
+and prints
 each seed's best valid ndcg@10, best epoch, epochs run, test ndcg@10 and
 per-epoch valid and test ndcg@10, then the mean and the sample standard
 deviation (ddof 1) of the best valid and the test ndcg@10 over the whole
@@ -30,7 +32,7 @@ SPLIT = os.path.join(
     REPO, "parity_runs/datasets/synthetic_structured/processed/leave_one_out/full_n_neg_100"
 )
 SEEDS = range(10)
-CAPS = (15, 20, 30, 40)
+CAPS = (10, 15, 20, 30, 40)
 
 
 def summarize(runs):
@@ -51,6 +53,11 @@ def at_cap(r, cap):
 
 
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--compute_dtype", default=None, help="e.g. bfloat16 (default: float32 throughout)")
+    compute_dtype = parser.parse_args().compute_dtype
     sys.path.insert(0, REPO)
     import jax
 
@@ -67,7 +74,8 @@ def main():
             cfg = load_config(os.path.join(REPO, "configs/mf_default.json")).replace(
                 system={"root_dir": root, "seed": seed},
                 dataset={"dataset": "synthetic_structured", "n_test": 1},
-                model={"sparse_optim": True, "row_update": "xla"},
+                model={"sparse_optim": True, "row_update": "xla",
+                       **({"compute_dtype": compute_dtype} if compute_dtype else {})},
             )
             rec = MatrixFactorization(cfg)
             result = rec.train(data)
@@ -82,7 +90,7 @@ def main():
             }
             runs.append(run)
             print(json.dumps(run), flush=True)
-    print(json.dumps({"run": summarize(runs),
+    print(json.dumps({"compute_dtype": compute_dtype, "run": summarize(runs),
                       **{f"cap_{cap}": summarize([at_cap(r, cap) for r in runs]) for cap in CAPS}}))
 
 

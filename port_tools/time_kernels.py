@@ -176,7 +176,10 @@ def epoch_rows(out):
 
     from beta_recsys_tpu_torch.core.train_engine import TrainEngine
     from beta_recsys_tpu_torch.data.sequential_data import SequentialData
-    from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+    try:
+        from beta_recsys_tpu_torch.datasets.data_split import load_split_data
+    except ImportError:  # a checkout from before the port had its own split pipeline
+        from beta_recsys_tpu_torch.datasets.split_io import load_split_data
     from beta_recsys_tpu_torch.models import build_model
 
     def rates(cfg, data, epochs, per_epoch):

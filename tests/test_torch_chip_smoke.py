@@ -495,7 +495,7 @@ def test_draw_replay_hands_the_ffn_relu_decisions_over():
 
 
 @pytest.mark.parametrize("name,widths,lr,cap", [("Triple2vec", {"emb_dim": 64, "use_bias": True}, 5e-4, 10),
-                                                ("VBCAR", {"emb_dim": 64, "late_dim": 128, "alpha": 0.05}, 1e-3, 10),
+                                                ("VBCAR", {"emb_dim": 64, "late_dim": 128, "alpha": 0.05}, 1e-3, 5),
                                                 ("TVBR", {"emb_dim": 64, "late_dim": 128, "time_step": 4}, 1e-3, 5)])
 def test_grocery_config_is_the_shipped_config_at_its_cap(name, widths, lr, cap):
     cfg = chip_smoke.grocery_config(name, 3, "/nowhere")
@@ -761,3 +761,62 @@ def test_phase_36_runs_its_checks_on_the_cpu(tmp_path, monkeypatch):
     text = "\n".join(logged)
     assert "lazy Adam: 1 epochs, then resume_training" in text and "dense Adam: 1 epochs" in text
     assert "one epoch (34) trained, then the early stop" in text
+
+
+def test_phase_38_flash_dtypes_see_bf16_alone(monkeypatch):
+    """FlashDtypes records the dtype each flash wrapper is called with (the
+    plain path on the CPU goes through the same wrappers); the loss and
+    backward of a SASRec whose model section sets compute_dtype bfloat16
+    (phase 38's) call both in bfloat16 alone; an engine-level cast alone
+    leaves the attention in float32 (the float32 sqrt(d) promotes the rows,
+    as in the JAX model), which fails ``only_bf16``; the wrappers are
+    restored after the block."""
+    from beta_recsys_tpu_torch.core.mixed_precision import loss_with_dtype
+    from beta_recsys_tpu_torch.models.sasrec import SASRec as SASRecModel
+    from beta_recsys_tpu_torch.ops.kernels import flash_attention
+
+    real = flash_attention.flash_causal_attention
+    cfg = {"emb_dim": 16, "num_blocks": 1, "num_heads": 1, "maxlen": 6, "dropout_rate": 0.0}
+    seq = torch.tensor([[0, 1, 2, 3, 4, 5], [0, 0, 7, 8, 2, 1]])
+    batch = {"seq": seq, "pos": torch.roll(seq, -1, 1), "neg": torch.ones_like(seq)}
+    for model_dtype, ok in (("bfloat16", True), (None, False)):
+        model = SASRecModel({**cfg, "compute_dtype": model_dtype}, 5, 9, device="cpu")
+        model.init_weights(torch.Generator().manual_seed(0))
+        with chip_smoke.FlashDtypes() as dtypes:
+            loss_with_dtype(model, "bfloat16")(batch).backward()
+        assert flash_attention.flash_causal_attention is real
+        kernels = ("flash_causal_attention", "flash_causal_attention_bwd")
+        if ok:
+            assert set(dtypes.seen) == {(k, "bfloat16") for k in kernels}
+            chip_smoke.only_bf16("t", dtypes.seen, kernels)
+        else:
+            with pytest.raises(SystemExit):
+                chip_smoke.only_bf16("t", dtypes.seen, kernels)
+
+
+def test_phase_38_pipeline_and_run_layer_on_the_cpu(tmp_path, monkeypatch, none_is_the_cpu):
+    """The committed structured split regenerated by the port, the
+    train_model CLI in a subprocess and mf_default.json's two-trial grid,
+    all on the CPU; no kernel counted. One thread here and in the CLI's
+    process: beside a parallel test run's workers, more threads only spin."""
+    logged = []
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: logged.append((phase, msg)))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        counts = chip_smoke.pipeline_and_run_layer(0, str(tmp_path), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert set(counts) == {"tune"} and not any(counts["tune"].values())
+    text = "\n".join(f"{phase}: {msg}" for phase, msg in logged)
+    for want in ("pipeline: host library build/torch_host/libbetarec_host_", "regenerated equal to the committed",
+                 "cli: python -m beta_recsys_tpu_torch.cli.train_model --model mf --max_epoch 1 --device cpu: exit 0",
+                 "tune: model.tune over", "bce valid ndcg@10", "bpr valid ndcg@10"):
+        assert want in text, want
+
+
+def test_phase_38_band_is_the_jax_bf16_band():
+    band = chip_smoke.MF_BF16_BAND
+    assert chip_smoke.MF_BF16_EPOCHS == 10 and all(band[key][1] > 0 for key in ("valid", "test"))
+    assert band["valid"][0] - 3 * band["valid"][1] > chip_smoke.UNTRAINED_NDCG  # it can fail an untrained model

@@ -31,7 +31,7 @@ from beta_recsys_tpu_torch.convert import params_to_jax
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata
 from beta_recsys_tpu_torch.core.eval_engine import FullCatalogEvaluator, TopKRetrievalEvaluator
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.models.mf import MF
 from beta_recsys_tpu_torch.utils.constants import DEFAULT_ITEM_COL, DEFAULT_RATING_COL, DEFAULT_USER_COL
 

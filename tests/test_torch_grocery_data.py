@@ -19,7 +19,7 @@ from beta_recsys_tpu.datasets.synthetic import add_synthetic_baskets as jax_add_
 from beta_recsys_tpu.utils.alias_table import AliasTable as JaxAliasTable
 from beta_recsys_tpu.utils.triple_sampler import Sampler as JaxSampler
 from beta_recsys_tpu_torch.data.grocery_data import GroceryData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets
 from beta_recsys_tpu_torch.ops.sampling import alias_negatives
 from beta_recsys_tpu_torch.utils.alias_table import AliasTable

@@ -20,7 +20,7 @@ from beta_recsys_tpu_torch.config import load_config
 from beta_recsys_tpu_torch.convert import mf_params_from_jax, params_to_jax
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.models import build_model, losses
 from beta_recsys_tpu_torch.models.mf import MF
 from beta_recsys_tpu_torch.recommenders import MatrixFactorization

@@ -25,7 +25,7 @@ from beta_recsys_tpu_torch.convert import flatten_params
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata, load_raw_checkpoint
 from beta_recsys_tpu_torch.core.train_engine import TrainEngine
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.models import build_model
 from test_torch_train_mf import structured_split
 

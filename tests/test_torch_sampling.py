@@ -18,7 +18,7 @@ from beta_recsys_tpu.datasets.data_split import load_split_data as jax_load_spli
 from beta_recsys_tpu.ops.sampling import sample_negatives_rejection_bitmask as jax_rejection_bitmask
 from beta_recsys_tpu_torch.core import train_engine
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.ops.sampling import (
     make_membership_test,
     sample_negatives_rejection,

@@ -14,7 +14,7 @@ import pytest
 from beta_recsys_tpu.data.sequential_data import SequentialData as JaxSequentialData
 from beta_recsys_tpu.datasets.data_split import load_split_data as jax_load_split_data
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.utils.constants import (
     DEFAULT_ITEM_COL,
     DEFAULT_RATING_COL,

@@ -15,7 +15,7 @@ from beta_recsys_tpu.recommenders import SASRec as JaxSASRec
 from beta_recsys_tpu_torch.config import load_config
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.recommenders import SASRec
 from beta_recsys_tpu_torch.utils.constants import DEFAULT_ITEM_COL, DEFAULT_PREDICTION_COL, DEFAULT_USER_COL
 

@@ -21,7 +21,7 @@ from beta_recsys_tpu_torch.config import load_config
 from beta_recsys_tpu_torch.convert import flatten_params, params_to_jax
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata, load_raw_checkpoint, msgpack_restore, msgpack_serialize
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.recommenders import NGCF, LightGCN
 from beta_recsys_tpu_torch.utils.constants import DEFAULT_ITEM_COL, DEFAULT_PREDICTION_COL, DEFAULT_USER_COL
 

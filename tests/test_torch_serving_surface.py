@@ -26,7 +26,7 @@ from beta_recsys_tpu_torch.core.checkpoint import load_metadata, save_checkpoint
 from beta_recsys_tpu_torch.core.train_engine import TrainEngine
 from beta_recsys_tpu_torch.data.base_data import BaseData
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.utils.constants import (
     DEFAULT_ITEM_COL,
     DEFAULT_PREDICTION_COL,
@@ -264,12 +264,27 @@ def test_load_on_a_trained_recommender_restores_the_engine_state(fast_split, tmp
     ("system", {"checkpoint_backend": "orbax"}, "orbax"),
 ])
 def test_fault_one_keys_raise(fast_split, tmp_path, key, value, item):
+    """The keys that once raised citing ROADMAP item 9 work: ``model.tune``
+    trains the config's grid and writes its table, ``system.log_to_file``
+    tees the run's output into its log files. The orbax backend raises."""
     split, _ = fast_split
     cfg = Config({"model": {"model": "MF", "emb_dim": 4, "max_epoch": 1}, "system": {"root_dir": str(tmp_path)},
-                  "dataset": {}})
+                  "dataset": {}, "tunable": [{"name": "lr", "type": "choice", "values": [0.1, 0.05]}]})
     cfg = cfg.replace(**{key: value})
-    with pytest.raises(NotImplementedError, match=item):
-        recommenders.MatrixFactorization(cfg, device="cpu").train(BaseData(split))
+    recommender = recommenders.MatrixFactorization(cfg, device="cpu")
+    if item != "item 9":
+        with pytest.raises(NotImplementedError, match=item):
+            recommender.train(BaseData(split))
+        return
+    result = recommender.train(BaseData(split))
+    assert np.isfinite(result["valid_metric"])
+    if key == "model":
+        assert [row["lr"] for row in result["tune_result"]] == [0.1, 0.05]
+        assert os.path.exists(os.path.join(str(tmp_path), "tune_results", "tune_result.csv"))
+        return
+    recommender.engine.run_logger.restore()
+    with open(recommender.engine.run_logger.stdout_path) as f:
+        assert "[Epoch 0]" in f.read()
 
 
 def test_orbax_raises_on_load_and_flax_stays_valid(fast_split, tmp_path):

@@ -52,7 +52,7 @@ from beta_recsys_tpu_torch.core.train_engine import (
     make_optimizer,
 )
 from beta_recsys_tpu_torch.data.base_data import BaseData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.models import build_model, mixgcf
 from beta_recsys_tpu_torch.models.cmn import build_item_neighborhoods
 from beta_recsys_tpu_torch.utils.constants import DEFAULT_ITEM_COL, DEFAULT_USER_COL

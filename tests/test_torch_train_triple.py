@@ -37,7 +37,7 @@ from beta_recsys_tpu_torch.convert import flatten_params
 from beta_recsys_tpu_torch.core.checkpoint import load_metadata, load_raw_checkpoint
 from beta_recsys_tpu_torch.core.train_engine import TrainEngine, TripleEpochTrainer, alias_tables, make_optimizer
 from beta_recsys_tpu_torch.data.grocery_data import GroceryData
-from beta_recsys_tpu_torch.datasets.split_io import load_split_data
+from beta_recsys_tpu_torch.datasets.data_split import load_split_data
 from beta_recsys_tpu_torch.datasets.synthetic import add_synthetic_baskets
 from beta_recsys_tpu_torch.models import build_model
 from beta_recsys_tpu_torch.models import vbcar as port_vbcar
