@@ -1,50 +1,67 @@
 """Dataset registry and config-driven loading (numpy only).
 
 Counterpart of ``beta_recsys_tpu/datasets/data_load.py``: ``DATASET_REGISTRY``
-maps a config's dataset name to its adapter; ``load_split_dataset`` builds the
-adapter and loads the configured split (building it on a miss);
+maps every dataset name of the JAX package's registry to its adapter;
+``load_split_dataset`` builds the adapter and loads the configured split,
+building it on a miss (preprocess of the raw files, k-core, split; a missing
+raw file raises a ``RuntimeError`` naming it and the raw directory);
 ``load_item_fea_dic`` / ``load_user_fea_dic`` read "id v1 v2 ..." feature
-files and ``load_user_item_feature`` the processed feature npz. The port has
-the synthetic adapters; every adapter that reads downloaded raw files is
-registered under its JAX name and raises.
+files and ``load_user_item_feature`` the processed feature npz.
 """
 
 import os
 
 import numpy as np
 
+from . import amazon
+from .amazon import AMAZON_CATEGORIES
+from .dunnhumby import Dunnhumby
+from .hetrec import Delicious_2k, LastFM_2k, MovieLens_2k
+from .instacart import Instacart, Instacart_25
+from .movielens import Movielens_1m, Movielens_10m, Movielens_25m, Movielens_100k
+from .simple_adapters import (
+    AliMobile,
+    CiteULikeA,
+    CiteULikeT,
+    Diginetica,
+    Epinions,
+    Gowalla,
+    LastFM,
+    RetailRocket,
+    Taobao,
+    Yelp,
+    YooChoose,
+)
 from .synthetic import Synthetic, SyntheticStructured
-
-_AMAZON_CATEGORIES = (
-    "Amazon_Instant_Video", "Musical_Instruments", "Digital_Music", "Baby", "Patio_Lawn_and_Garden",
-    "Grocery_and_Gourmet_Food", "Automotive", "Pet_Supplies", "Cell_Phones_and_Accessories",
-    "Health_and_Personal_Care", "Toys_and_Games", "Video_Games", "Tools_and_Home_Improvement", "Beauty",
-    "Apps_for_Android", "Office_Products", "Books", "Electronics", "Movies_and_TV", "CDs_and_Vinyl",
-    "Clothing_Shoes_and_Jewelry", "Home_and_Kitchen", "Kindle_Store", "Sports_and_Outdoors",
-)
-RAW_FILE_ADAPTERS = (
-    "ml_100k", "ml_1m", "ml_10m", "ml_25m", "dunnhumby", "tafeng", "instacart", "instacart_25", "epinions",
-    "last_fm", "yelp", "gowalla", "taobao", "ali_mobile", "retailrocket", "yoochoose", "diginetica",
-    "citeulike-a", "citeulike-t", "movielens_2k", "delicious-2k", "lastfm-2k",
-    *(f"amazon_{category.lower()}" for category in _AMAZON_CATEGORIES),
-)
-
-
-def _raw_file_adapter(name):
-    def adapter(**kwargs):
-        raise NotImplementedError(
-            f"dataset {name!r}: the adapters that preprocess raw files are ROADMAP.md, section 1 item 10; "
-            "the port builds the synthetic datasets ('synthetic', 'synthetic_structured', 'random') and reads "
-            "any split directory the JAX package wrote (datasets.data_split.load_split_data)")
-
-    return adapter
-
+from .tafeng import Tafeng
 
 DATASET_REGISTRY = {
     "synthetic": Synthetic,
     "synthetic_structured": SyntheticStructured,
     "random": Synthetic,
-    **{name: _raw_file_adapter(name) for name in RAW_FILE_ADAPTERS},
+    "ml_100k": Movielens_100k,
+    "ml_1m": Movielens_1m,
+    "ml_10m": Movielens_10m,
+    "ml_25m": Movielens_25m,
+    "dunnhumby": Dunnhumby,
+    "tafeng": Tafeng,
+    "instacart": Instacart,
+    "instacart_25": Instacart_25,
+    "epinions": Epinions,
+    "last_fm": LastFM,
+    "yelp": Yelp,
+    "gowalla": Gowalla,
+    "taobao": Taobao,
+    "ali_mobile": AliMobile,
+    "retailrocket": RetailRocket,
+    "yoochoose": YooChoose,
+    "diginetica": Diginetica,
+    "citeulike-a": CiteULikeA,
+    "citeulike-t": CiteULikeT,
+    "movielens_2k": MovieLens_2k,
+    "delicious-2k": Delicious_2k,
+    "lastfm-2k": LastFM_2k,
+    **{f"amazon_{category.lower()}": getattr(amazon, name) for name, category in AMAZON_CATEGORIES.items()},
 }
 
 

@@ -201,24 +201,36 @@ def feed_neg_sample(data, negative_num, item_sampler, use_native=True):
                     DEFAULT_RATING_COL: np.concatenate(ratings_out)})
 
 
+def _label_positions(labels, values):
+    """Each value's position in ``labels`` (distinct), -1 where absent."""
+    order = np.argsort(labels, kind="stable")
+    pos = order[np.minimum(np.searchsorted(labels, values, sorter=order), len(labels) - 1)]
+    return np.where(labels[pos] == values, pos, -1).astype(np.int64)
+
+
 def _feed_neg_sample_native(data, negative_num, item_sampler):
-    labels = np.asarray(item_sampler.index2Label, dtype=np.int64)
+    """The host library draws and rejects the alias table's positions, and
+    the negatives are its labels: items of the frame's own type. (The JAX
+    package passes the ids themselves as int64, so string item ids come back
+    as ints or raise; ROADMAP.md, notes on the reference.)"""
+    labels = np.asarray(item_sampler.index2Label)
     users_all, items_all = np.asarray(data[DEFAULT_USER_COL]), np.asarray(data[DEFAULT_ITEM_COL])
     # The distinct (user, item) pairs in order of first appearance.
     u, n_u = _codes(users_all)
     i, n_i = _codes(items_all)
     _, first = np.unique(u * n_i + i, return_index=True)
     first = np.sort(first)
-    users, items = users_all[first], items_all[first].astype(np.int64)
+    users, items = users_all[first], items_all[first]
     uniq_users, inv = np.unique(users, return_inverse=True)
     inv = inv.reshape(-1)
-    sorted_items = items[np.argsort(inv, kind="stable")]
+    sorted_items = _label_positions(labels, items)[np.argsort(inv, kind="stable")]
     indptr = np.concatenate([[0], np.cumsum(np.bincount(inv, minlength=len(uniq_users)))]).astype(np.int64)
-    negs = host.feed_neg_batch(indptr, sorted_items, item_sampler.prob_arr, item_sampler.alias_arr, labels,
-                               negative_num, seed=np.random.randint(2**31))
+    negs = host.feed_neg_batch(indptr, sorted_items, item_sampler.prob_arr, item_sampler.alias_arr,
+                               np.arange(len(labels), dtype=np.int64), negative_num,
+                               seed=np.random.randint(2**31))
     return shuffle({
         DEFAULT_USER_COL: np.concatenate([users, np.repeat(uniq_users, negative_num)]),
-        DEFAULT_ITEM_COL: np.concatenate([items, negs.reshape(-1)]),
+        DEFAULT_ITEM_COL: np.concatenate([items, labels[negs.reshape(-1)]]),
         DEFAULT_RATING_COL: np.concatenate([np.ones(len(users)), np.zeros(negs.size)]),
     })
 

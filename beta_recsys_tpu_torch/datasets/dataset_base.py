@@ -64,6 +64,16 @@ class DatasetBase:
         """The port downloads nothing (its machines have no network)."""
         raise RuntimeError(f"beta_recsys_tpu_torch downloads no dataset: {self.tips}")
 
+    def raw_file(self, *candidates):
+        """The first of ``candidates`` (paths under ``raw_path``) that exists;
+        with none, a ``RuntimeError`` naming them, ``raw_path`` and the tips."""
+        for rel in candidates:
+            path = os.path.join(self.raw_path, rel)
+            if os.path.exists(path):
+                return path
+        raise RuntimeError(f"{self.dataset_name}: no {' or '.join(candidates)} under {self.raw_path} "
+                           f"(beta_recsys_tpu_torch downloads nothing). {self.tips}")
+
     def preprocess(self):
         """Write the interaction npz from the raw files (per adapter)."""
         raise NotImplementedError

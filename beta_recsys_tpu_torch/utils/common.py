@@ -5,14 +5,17 @@ Counterpart of ``beta_recsys_tpu/utils/common.py`` without pandas: a frame is
 a dict of equal-length numpy columns keyed by the column names of
 ``utils.constants``. ``save_dataframe_as_npz`` writes the JAX package's keys,
 dtypes and ``storable`` rules and ``get_dataframe_from_npz`` reads them, so
-each package reads the other's split cache.
+each package reads the other's split cache. ``savez_compressed`` dates every
+entry 1980-01-01, so equal frames give byte-identical files.
 """
 
 import csv
+import io
 import json
 import os
 import random
 import time
+import zipfile
 from functools import wraps
 
 import numpy as np
@@ -47,10 +50,11 @@ def set_seed(seed):
 
 
 def _storable(arr, prefer_int=False):
-    """Object columns (string ids) as fixed-width unicode, or int64 where
-    ``prefer_int`` and they parse, so ``np.load`` needs no pickle."""
+    """String columns (object or unicode: string ids) as fixed-width
+    unicode, or int64 where ``prefer_int`` and they parse, so ``np.load``
+    needs no pickle."""
     arr = np.asarray(arr)
-    if arr.dtype == object:
+    if arr.dtype == object or arr.dtype.kind == "U":
         if prefer_int:
             try:
                 return arr.astype(np.int64)
@@ -76,7 +80,37 @@ def save_dataframe_as_npz(frame, data_file):
     else:
         data["timestamps"] = np.zeros_like(data["ratings"])
     ensure_dir(os.path.dirname(data_file))
-    np.savez_compressed(data_file, **data)
+    savez_compressed(data_file, **data)
+
+
+def savez_compressed(path, **arrays):
+    """``np.savez_compressed(path, **arrays)`` with every entry dated
+    1980-01-01 in place of the time of writing (equal arrays, equal bytes)
+    and deflated at level 1: a split's negative-sampled copies of string ids
+    compress 5x faster than at numpy's level 6, into files ~30% larger."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_DEFLATED, allowZip64=True) as zf:
+        for key, value in arrays.items():
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, np.asanyarray(value), allow_pickle=False)
+            zf.writestr(zipfile.ZipInfo(f"{key}.npy", date_time=(1980, 1, 1, 0, 0, 0)), buf.getvalue(),
+                        compress_type=zipfile.ZIP_DEFLATED, compresslevel=1)
+
+
+def inner_join_rows(left_keys, right_keys):
+    """(left rows, right rows) of pandas' inner merge on key columns (lists
+    of equal-length arrays, one a key): every left row in order, beside each
+    right row with its key in the right frame's order."""
+    n_left = len(left_keys[0])
+    codes = np.zeros(n_left + len(right_keys[0]), dtype=np.int64)
+    for lk, rk in zip(left_keys, right_keys):
+        uniq, inverse = np.unique(np.concatenate([lk, rk]), return_inverse=True)
+        codes = codes * len(uniq) + inverse.reshape(-1)
+    left, right = codes[:n_left], codes[n_left:]
+    order = np.argsort(right, kind="stable")
+    lo = np.searchsorted(right[order], left, "left")
+    counts = np.searchsorted(right[order], left, "right") - lo
+    starts = np.repeat(lo - (np.cumsum(counts) - counts), counts)
+    return np.repeat(np.arange(n_left), counts), order[starts + np.arange(counts.sum())]
 
 
 def get_dataframe_from_npz(data_file):

@@ -233,7 +233,21 @@ Phases, each printed with the seconds elapsed:
      structured interactions and leave_one_out split regenerated equal to
      the committed files; the train_model CLI on cuda in a subprocess and
      mf_default.json's two-trial grid through model.tune;
- 39. a JSON line of every kernel with its launches on each path, counted
+ 39. the raw-file adapters behind the shipped configs, from files written
+     at their datasets' published shapes from the seed (no download): an
+     ml-100k u.data (943 users, 1,682 items, 100,000 ratings, >= 20 a user,
+     zipf items), u.item (latin-1) and u.user in raw/ml-100k/, through
+     load_split_dataset(configs/mf_default.json) (preprocess, k-core,
+     leave_one_out with 10 copies of 100 negatives), make_fea_vec, and
+     MatrixFactorization(cfg).train() for RAW_MF_EPOCHS epochs on lazy Adam
+     (sparse_optim true: fused_rowadam once a step) and test(), ndcg@10
+     above random ranking (RANDOM_NDCG); then the dunnhumby (2,500
+     households) and Ta-Feng files through their shipped configs' splits
+     (leave_one_basket, leave_one_out) on the host. Each preprocess runs
+     twice in fresh directories and must write the same bytes; the phase
+     prints the seconds to preprocess and to split, the rows before and
+     after the k-core, examples/s and the launches;
+ 40. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
@@ -291,10 +305,15 @@ from beta_recsys_tpu_torch.core.train_engine import (  # noqa: E402
 from beta_recsys_tpu_torch.data.base_data import BaseData  # noqa: E402
 from beta_recsys_tpu_torch.data.grocery_data import GroceryData  # noqa: E402
 from beta_recsys_tpu_torch.data.sequential_data import SequentialData  # noqa: E402
-from beta_recsys_tpu_torch.datasets import host  # noqa: E402
+from beta_recsys_tpu_torch.datasets import build_dataset, host, load_split_dataset  # noqa: E402
 from beta_recsys_tpu_torch.datasets.data_split import load_split_data  # noqa: E402
-from beta_recsys_tpu_torch.datasets.synthetic import SyntheticStructured, add_synthetic_baskets  # noqa: E402
+from beta_recsys_tpu_torch.datasets.synthetic import (  # noqa: E402
+    SyntheticStructured,
+    add_synthetic_baskets,
+    generate_structured_data,
+)
 from beta_recsys_tpu_torch.device import fp32_matmuls  # noqa: E402
+from beta_recsys_tpu_torch.utils.common import get_dataframe_from_npz  # noqa: E402
 from beta_recsys_tpu_torch.ops.graph import edge_dropout  # noqa: E402
 from beta_recsys_tpu_torch.ops.topk import (  # noqa: E402
     NEG_INF,
@@ -481,19 +500,19 @@ EXPECTED_NCF_METRICS = {
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
 # package's training at each shipped config on the structured split, read at
 # NCF_EPOCHS (the runs' best epochs are 4-25, early stop at 25-46):
-# `JAX_PLATFORMS=cpu python port_tools/jax_ncf_band.py`. A port run must land
-# within mean +- 3 std.
-NCF_EPOCHS = 15  # phase 18's trainings
+# `JAX_PLATFORMS=cpu python port_tools/jax_ncf_band.py` (its cap_8). A port
+# run must land within mean +- 3 std.
+NCF_EPOCHS = 8  # phase 18's trainings
 NCF_BANDS = {
-    "GMF": {"valid": (0.14169272035360336, 0.0022578277715178275),
-            "test": (0.11973418816924095, 0.0018701097444924386)},
-    "MLP": {"valid": (0.15532318651676177, 0.007576780911933196),
-            "test": (0.13132473230361938, 0.003419553069412706)},
-    "NCF": {"valid": (0.1511957198381424, 0.004919920450754352),
-            "test": (0.12969834208488465, 0.0050988329860811865)},
+    "GMF": {"valid": (0.13045619130134584, 0.002510772851312543),
+            "test": (0.11243038028478622, 0.002348930295045312)},
+    "MLP": {"valid": (0.15071403980255127, 0.010103409779784685),
+            "test": (0.12852610722184182, 0.006717674780871493)},
+    "NCF": {"valid": (0.1467988207936287, 0.008318218752347563),
+            "test": (0.1256631463766098, 0.0073006308734946375)},
 }
-GMF_PRETRAIN_EPOCHS = 5  # phase 19's GMF at NCF's width
-NCF_WARM_EPOCHS = 3  # phase 19's warm-started NeuMF
+GMF_PRETRAIN_EPOCHS = 2  # phase 19's GMF at NCF's width
+NCF_WARM_EPOCHS = 1  # phase 19's warm-started NeuMF
 # The graph models: each recommender, shipped config and JAX-trained seed-0
 # checkpoint.
 GRAPH_FAMILY = {
@@ -636,21 +655,21 @@ EXPECTED_VAECF_METRICS = {"ndcg@10": 0.155424, "recall@10": 0.397667, "precision
                           "map@10": 0.084868}
 # The grocery models (phases 32-33) on the structured split with the
 # synthetic baskets of examples/parity_check.py: each recommender, shipped
-# config and the epochs its training runs (the cap its JAX band is read at;
-# VBCAR's and TVBR's steps cost 2-4 Triple2vec's, so they stop at 5).
+# config and the epochs its training runs (the cap its JAX band is read at).
 GROCERY_FAMILY = {
-    "Triple2vec": (Triple2vec, "configs/triple2vec_default.json", 10),
+    "Triple2vec": (Triple2vec, "configs/triple2vec_default.json", 5),
     "VBCAR": (VBCAR, "configs/vbcar_default.json", 5),
     "TVBR": (TVBR, "configs/tvbr_default.json", 5),
 }
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the
 # JAX package's training at each shipped config, read at GROCERY_FAMILY's
-# caps (10, 5, 5) from runs of 20 epochs: `JAX_PLATFORMS=cpu python
-# port_tools/jax_grocery_band.py` (VBCAR's from a run read at cap 5). The
-# JAX engine draws its triples unseeded; the port from the run's seed.
+# caps from runs of 20 epochs: `JAX_PLATFORMS=cpu python
+# port_tools/jax_grocery_band.py` (VBCAR's and Triple2vec's each from a run
+# of its own, read at cap 5). The JAX engine draws its triples unseeded;
+# the port from the run's seed.
 GROCERY_BANDS = {
-    "Triple2vec": {"valid": (0.2675051152706146, 0.005279386489104838),
-                   "test": (0.25424200743436814, 0.006551544384072174)},
+    "Triple2vec": {"valid": (0.2430685743689537, 0.006011855701909334),
+                   "test": (0.23163970410823823, 0.005162243148011987)},
     "VBCAR": {"valid": (0.2482302561402321, 0.005767608691856849),
               "test": (0.23380966633558273, 0.004666787336907868)},
     "TVBR": {"valid": (0.2315541088581085, 0.010528498129963258),
@@ -4052,6 +4071,259 @@ def mixed_precision_phases(seed, root_dir, gen):
     return train_counts, counts, timed
 
 
+# -- the raw-file adapters behind the shipped configs (phase 39) -------------------------
+
+# Phase 39 writes raw files at their datasets' published shapes, from the
+# seed, and runs each shipped config's split from them on the host. ml-100k:
+# 943 users, 1,682 items, 100,000 ratings, at least 20 a user, zipf item
+# popularity. Dunnhumby: the published 2,500 households, 3-9 baskets each
+# over 20,000 products (the real file's 2.6 M rows cut to ~85,000). Ta-Feng: digit-string ids as the real file's,
+# 500 customers over 2,500 products (the real 32,266 and 23,812 cut: its
+# split writes 20 copies of 101 string ids a customer).
+ML100K_SHAPE = {"n_users": 943, "n_items": 1682, "n_ratings": 100_000, "min_per_user": 20}
+DUNNHUMBY_SHAPE = {"n_households": 2_500, "n_products": 20_000, "baskets": (3, 10), "basket_size": (1, 12)}
+TAFENG_SHAPE = {"n_users": 500, "n_products": 2_500, "baskets": (2, 9), "basket_size": (1, 10)}
+RAW_SHAPES = {"ml_100k": ML100K_SHAPE, "dunnhumby": DUNNHUMBY_SHAPE, "tafeng": TAFENG_SHAPE}
+# Each dataset's shipped config (its dataset section is the config's own).
+RAW_CONFIGS = {"ml_100k": "configs/mf_default.json", "dunnhumby": "configs/triple2vec_default.json",
+               "tafeng": "configs/ultragcn_default.json"}
+RAW_MF_EPOCHS = 3  # phase 39's training of mf_default.json on the hand-placed u.data
+RANDOM_NDCG = 0.045  # ndcg@10 of a random ranking of 1 positive among 101 candidates
+OCCUPATIONS = ("administrator", "artist", "doctor", "educator", "engineer", "entertainment", "executive",
+               "healthcare", "homemaker", "lawyer", "librarian", "marketing", "none", "other", "programmer",
+               "retired", "salesman", "scientist", "student", "technician", "writer")
+
+
+def _write_lines(path, lines, encoding="utf-8"):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding=encoding, newline="") as f:
+        f.write("".join(line + "\n" for line in lines))
+
+
+def write_ml100k_raw(raw_path, seed, n_users, n_items, n_ratings, min_per_user):
+    """ml-100k's three files under ``raw_path/ml-100k/`` (as its zip
+    unpacks): u.data (user, item, rating 1-5, timestamp; tab-separated, in
+    no order), u.item (latin-1, 24 "|"-separated fields: id, title, dates,
+    url, 19 genre flags) and u.user (id, age, gender, occupation, zip). The
+    ratings follow the structured generator's users, items and time order,
+    topped up to ``n_ratings`` distinct pairs."""
+    frame = generate_structured_data(n_users=n_users, n_items=n_items, n_interactions=n_ratings,
+                                     min_per_user=min_per_user, seed=seed)
+    rng = np.random.default_rng(seed)
+    users, items = frame[DEFAULT_USER_COL], frame[DEFAULT_ITEM_COL]  # in time order
+    seen = set(zip(users.tolist(), items.tolist()))
+    extra = []  # the generator's rounding leaves a few short: new pairs, by popularity, at random times
+    while len(seen) < n_ratings:
+        pair = (int(rng.integers(0, n_users)), int(min(rng.zipf(1.3), n_items) - 1))
+        if pair not in seen:
+            seen.add(pair)
+            extra.append(pair)
+    when = np.argsort(np.r_[np.arange(len(users)), rng.uniform(0, len(users), len(extra))], kind="stable")
+    users = np.r_[users, [u for u, _ in extra]].astype(np.int64)[when]
+    items = np.r_[items, [i for _, i in extra]].astype(np.int64)[when]
+    n = len(users)
+    stamps = 874724710 + np.cumsum(rng.integers(1, 200, n))
+    rows = np.stack([users + 1, items + 1, rng.integers(1, 6, n), stamps], 1)
+    base = os.path.join(raw_path, "ml-100k")
+    _write_lines(os.path.join(base, "u.data"), ["\t".join(map(str, r)) for r in rows[rng.permutation(n)].tolist()])
+    genres = np.where(rng.random((n_items, 19)) < 0.12, "1", "0")
+    _write_lines(os.path.join(base, "u.item"), [
+        f"{i + 1}|{'Café' if i % 7 == 0 else 'Film'} {i + 1} (199{i % 10})|01-Jan-199{i % 10}||"
+        f"http://us.imdb.com/M/title-exact?Film%20{i + 1}|" + "|".join(genres[i]) for i in range(n_items)],
+        encoding="latin-1")
+    ages, zips = rng.integers(7, 74, n_users), rng.integers(0, 99999, n_users)
+    gender = np.where(rng.random(n_users) < 0.29, "F", "M")
+    occupation = rng.permutation(np.arange(n_users) % len(OCCUPATIONS))  # each one held by someone
+    _write_lines(os.path.join(base, "u.user"), [f"{u + 1}|{ages[u]}|{gender[u]}|{OCCUPATIONS[occupation[u]]}|"
+                                                f"{zips[u]:05d}" for u in range(n_users)])
+    return n
+
+
+def _baskets(rng, n_users, n_products, baskets, basket_size, groups=20):
+    """(user, basket index, product) rows: zipf product popularity, each
+    user shopping mostly in two of ``groups`` departments."""
+    pop = 1.0 / (rng.permutation(n_products) + 1.0) ** 1.1
+    dept = rng.permutation(np.arange(n_products) % groups)  # no department empty
+    by_dept = [np.flatnonzero(dept == g) for g in range(groups)]
+    probs = [pop[idx] / pop[idx].sum() for idx in by_dept]
+    n_baskets = rng.integers(*baskets, n_users)
+    users = np.repeat(np.arange(n_users), n_baskets)
+    sizes = rng.integers(*basket_size, len(users))
+    row_user, row_basket = np.repeat(users, sizes), np.repeat(np.arange(len(users)), sizes)
+    home = rng.integers(0, groups, (n_users, 2))
+    row_dept = np.where(rng.random(len(row_user)) < 0.8, home[row_user, rng.integers(0, 2, len(row_user))],
+                        rng.integers(0, groups, len(row_user)))
+    products = np.empty(len(row_user), dtype=np.int64)
+    for g in range(groups):
+        rows = np.flatnonzero(row_dept == g)
+        products[rows] = rng.choice(by_dept[g], size=len(rows), p=probs[g])
+    return row_user, row_basket, products
+
+
+def write_dunnhumby_raw(raw_path, seed, n_households, n_products, baskets, basket_size):
+    """transaction_data.csv with The Complete Journey's twelve columns: each
+    household's baskets on increasing days (DAY 1-711), TRANS_TIME as an
+    un-padded HHMM int."""
+    rng = np.random.default_rng(seed)
+    user, basket, product = _baskets(rng, n_households, n_products, baskets, basket_size)
+    n_b = basket.max() + 1
+    basket_user = np.zeros(n_b, dtype=np.int64)
+    basket_user[basket] = user
+    day = np.zeros(n_b, dtype=np.int64)
+    for h in range(n_households):  # each household's days increase
+        own = np.flatnonzero(basket_user == h)
+        day[own] = np.sort(rng.integers(1, 712, len(own)))
+    trans_time = rng.integers(0, 24, n_b) * 100 + rng.integers(0, 60, n_b)
+    basket_id = 26984851472 + np.cumsum(rng.integers(1, 300, n_b))
+    header = ("household_key,BASKET_ID,DAY,PRODUCT_ID,QUANTITY,SALES_VALUE,STORE_ID,RETAIL_DISC,TRANS_TIME,"
+              "WEEK_NO,COUPON_DISC,COUPON_MATCH_DISC")
+    lines = [f"{u + 1},{basket_id[b]},{day[b]},{p + 25671},1,{(p % 500) / 100 + 0.39:.2f},364,-0.6,{trans_time[b]},"
+             f"{day[b] // 7 + 1},0,0" for u, b, p in zip(user.tolist(), basket.tolist(), product.tolist())]
+    _write_lines(os.path.join(raw_path, "transaction_data.csv"), [header] + lines)
+    return len(lines)
+
+
+def write_tafeng_raw(raw_path, seed, n_users, n_products, baskets, basket_size):
+    """train.txt and test.txt, one basket a line: order id, products, customer
+    id and date (2000-11-01 to 2001-02-28), tab-separated, digit-string ids
+    as the real file's; each customer's last basket goes to test.txt."""
+    rng = np.random.default_rng(seed)
+    user, basket, product = _baskets(rng, n_users, n_products, baskets, basket_size)
+    customers = [f"{c:08d}" for c in rng.choice(20_000_000, n_users, replace=False)]
+    codes = [f"47{c:011d}" for c in rng.choice(10**11, n_products, replace=False)]
+    n_b = basket.max() + 1
+    basket_user = np.zeros(n_b, dtype=np.int64)
+    basket_user[basket] = user
+    days = np.datetime64("2000-11-01") + rng.integers(0, 120, n_b)
+    order_ids = 1_000_000 + np.arange(n_b)
+    starts = np.searchsorted(basket, np.arange(n_b))
+    ends = np.searchsorted(basket, np.arange(n_b), "right")
+    last = np.r_[basket_user[1:] != basket_user[:-1], True]  # baskets come user by user
+    out = {"train.txt": [], "test.txt": []}
+    for b in range(n_b):
+        items = "\t".join(codes[p] for p in product[starts[b]:ends[b]])
+        out["test.txt" if last[b] else "train.txt"].append(
+            f"{order_ids[b]}\t{items}\t{customers[basket_user[b]]}\t{days[b]}")
+    for name, lines in out.items():
+        _write_lines(os.path.join(raw_path, name), lines)
+    return len(product)
+
+
+RAW_WRITERS = {"ml_100k": write_ml100k_raw, "dunnhumby": write_dunnhumby_raw, "tafeng": write_tafeng_raw}
+
+
+def raw_config(name, seed, root_dir, **model):
+    """The dataset's shipped config with its datasets, runs and results under
+    ``root_dir`` and the run's seed."""
+    return load_config(os.path.join(REPO, RAW_CONFIGS[name])).replace(
+        system={"root_dir": root_dir, "seed": seed}, dataset={"root_dir": root_dir}, model=model)
+
+
+def preprocessed(name, seed, root_dir, shape):
+    """Write the raw files into a fresh ``root_dir`` and preprocess them:
+    (the adapter, seconds to preprocess, the interaction npz's bytes)."""
+    dataset = build_dataset(raw_config(name, seed, root_dir).to_dict())
+    RAW_WRITERS[name](dataset.raw_path, seed, **shape)
+    t0 = time.perf_counter()
+    dataset.preprocess()
+    secs = time.perf_counter() - t0
+    with open(dataset.interaction_file(), "rb") as f:
+        return dataset, secs, f.read()
+
+
+def raw_split(name, seed, root_dir, shape=None, **model):
+    """One dataset's path on the host: raw files -> load_split_dataset (its
+    preprocess, k-core and the config's split, on a miss), and the same raw
+    files preprocessed again in a fresh directory, byte for byte. Returns
+    (config, split)."""
+    phase = f"raw-{name}"
+    shape = shape or RAW_SHAPES[name]
+    config = raw_config(name, seed, os.path.join(root_dir, name, "a"), **model)
+    dataset = build_dataset(config.to_dict())
+    t0 = time.perf_counter()
+    n_raw = RAW_WRITERS[name](dataset.raw_path, seed, **shape)
+    t_write = time.perf_counter() - t0
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    split = load_split_dataset(config.to_dict())
+    t_load = time.perf_counter() - t0
+    again, t_pre, again_bytes = preprocessed(name, seed, os.path.join(root_dir, name, "b"), shape)
+    with open(dataset.interaction_file(), "rb") as f:
+        if f.read() != again_bytes:
+            fail(f"{phase}: a second preprocess of the same raw files wrote other bytes to "
+                 f"{os.path.basename(again.interaction_file())}")
+    before = len(get_dataframe_from_npz(dataset.interaction_file())[DEFAULT_USER_COL])
+    after = len(dataset.load_interaction()[DEFAULT_USER_COL])
+    train, valid, test = split
+    ds = config.dataset
+    if len(valid) != ds["n_test"] or len(test) != ds["n_test"] or not len(train[DEFAULT_USER_COL]):
+        fail(f"{phase}: {len(valid)} valid and {len(test)} test copies, {len(train[DEFAULT_USER_COL])} train rows")
+    for frame in (*valid, *test):
+        if frame[DEFAULT_ITEM_COL].dtype.kind != train[DEFAULT_ITEM_COL].dtype.kind:
+            fail(f"{phase}: evaluation items of dtype {frame[DEFAULT_ITEM_COL].dtype}, train's "
+                 f"{train[DEFAULT_ITEM_COL].dtype}")
+    log(phase, f"{RAW_CONFIGS[name]} ({ds['data_split']}, {ds['n_test']} copies of {ds['n_negative']} negatives): "
+        f"{n_raw} raw rows written in {t_write:.2f} s; preprocess {t_pre:.2f} s (a second run in a fresh directory: "
+        f"the same bytes); load_split_dataset (preprocess, k-core, split) {t_load:.2f} s, so the split "
+        f"{t_load - t_pre:.2f} s; rows {before} before the k-core (min_i_c {dataset.min_i_c}), {after} after; "
+        f"{len(train[DEFAULT_USER_COL])} train rows")
+    return config, split
+
+
+def raw_adapters_phase(seed, root_dir, device="cuda", shapes=None, epochs=RAW_MF_EPOCHS):
+    """Phase 39: ml_100k from a hand-placed u.data through mf_default.json
+    (lazy Adam: fused_rowadam once a step) to test(), its feature vectors,
+    and the dunnhumby and Ta-Feng configs' splits on the host. Returns the
+    kernels' counts by path."""
+    t0 = time.perf_counter()
+    shapes = shapes or RAW_SHAPES
+    phase = "raw-ml_100k"
+    # mf_default.json's sparse_optim is "auto", which trains on the dense
+    # path on one device; true takes the lazy-Adam path of phase 3.
+    config, split = raw_split("ml_100k", seed, root_dir, shapes["ml_100k"], max_epoch=epochs, sparse_optim=True)
+    dataset = build_dataset(config.to_dict())
+    user_feat, item_feat = dataset.make_fea_vec()
+    shape = shapes["ml_100k"]
+    if user_feat.shape != (shape["n_users"], 1 + 8 + 2 + len(OCCUPATIONS)) or item_feat.shape != (shape["n_items"], 20):
+        fail(f"{phase}: make_fea_vec gave {user_feat.shape} and {item_feat.shape}")
+    t1 = time.perf_counter()
+    data = BaseData(split)
+    t_data = time.perf_counter() - t1
+    zero_kernel_counts()
+    rec = MatrixFactorization(config, device=device)
+    t1 = time.perf_counter()
+    result = rec.train(data)
+    synchronize(device)
+    t_train = time.perf_counter() - t1
+    counts = kernel_counts()
+    engine = rec.engine
+    steps = len(engine.bookkeeper.history) * engine.epoch_fn.num_batches
+    if device == "cuda":
+        check_launches("fused_rowadam", phase, counts["fused_rowadam"], steps)
+    if any(v for k, v in counts.items() if k != "fused_rowadam"):
+        fail(f"{phase}: launched {counts}; the path runs fused_rowadam alone")
+    t1 = time.perf_counter()
+    res = rec.test()
+    t_test = time.perf_counter() - t1
+    rates = RATES[phase] = [engine.epoch_fn.padded_size / s for s in engine.epoch_seconds]
+    if not res["ndcg@10"] > RANDOM_NDCG:
+        fail(f"{phase}: test ndcg@10 {res['ndcg@10']:.6f}, not above random ranking ({RANDOM_NDCG})")
+    log(phase, f"make_fea_vec: user_feat {user_feat.shape}, item_feat {item_feat.shape}; BaseData {t_data:.2f} s; "
+        f"MatrixFactorization(mf_default.json).train() {t_train:.2f} s (its evaluations included), test() "
+        f"{t_test:.2f} s: {data.n_users} users, {data.n_items} items, {len(rates)} epochs of "
+        f"{engine.epoch_fn.num_batches} steps x {engine.epoch_fn.batch_size}, examples/s per epoch "
+        + ", ".join(f"{r:.1f}" for r in rates) + f"; best valid ndcg@10 {result['valid_metric']:.6f}; test() "
+        + ", ".join(f"{k} {res[k]:.6f}" for k in ("ndcg@10", "recall@10", "precision@10", "map@10"))
+        + f" (random ranking {RANDOM_NDCG})")
+    for name in ("dunnhumby", "tafeng"):
+        _, split = raw_split(name, seed, root_dir, shapes[name])
+        held = BaseData(split)
+        if not all(len(f[DEFAULT_USER_COL]) for f in (*held.valid, *held.test)):
+            fail(f"raw-{name}: BaseData kept no evaluation row of a copy")
+    log("raw-adapters", f"phase 39 took {time.perf_counter() - t0:.2f} s")
+    return {"raw-ml_100k-train": counts}
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
@@ -4293,11 +4565,13 @@ def main():
         mark("38 mixed precision, pipeline, run layer")
         train_counts["sasrec_bf16"], bf16_counts, bf16_train_row = mixed_precision_phases(args.seed, root_dir, gen)
         graph_counts.update(bf16_counts)
+        mark("39 raw-file adapters")
+        graph_counts.update(raw_adapters_phase(args.seed, root_dir))
         mark("profiles of 20-33 (one child)")
         profiled_in_child(PROFILES, args.seed)
         mark()
     log("time", "seconds by phase: " + json.dumps(PHASE_SECONDS))
-    for path, counts in graph_counts.items():  # phases 17-38: 0 but 34's flash, 36's fused_rowadam, 37's and 38's
+    for path, counts in graph_counts.items():  # phases 17-39: 0 but 34's flash, 36's, 38's and 39's fused_rowadam, 37's
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]

@@ -27,7 +27,7 @@ import tempfile
 from jax_mf_band import REPO, SEEDS, SPLIT, at_cap, summarize
 
 CONFIGS = {"GMF": "configs/gmf_default.json", "MLP": "configs/mlp_default.json", "NCF": "configs/ncf_default.json"}
-CAPS = (15, 20, 25)
+CAPS = (8, 10, 15, 20, 25)
 
 
 def main():

@@ -166,7 +166,7 @@ def test_ncf_config_is_the_shipped_config(name, emb_dim):
     assert cfg.dataset.dataset == "synthetic_structured" and cfg.dataset.n_test == 1
     m = cfg.model
     assert (m.model, m.emb_dim, m.num_negative, m.batch_size, m.lr, m.max_n_update) == (name, emb_dim, 4, 400, 1e-3, 20)
-    assert m.max_epoch == chip_smoke.NCF_EPOCHS == 15
+    assert m.max_epoch == chip_smoke.NCF_EPOCHS == 8
     assert set(chip_smoke.NCF_BANDS[name]) == {"valid", "test"}
     assert os.path.isdir(os.path.join(REPO, "parity_runs/checkpoints", chip_smoke.NCF_FAMILY[name][2]))
 
@@ -494,7 +494,7 @@ def test_draw_replay_hands_the_ffn_relu_decisions_over():
         assert not replay.queue
 
 
-@pytest.mark.parametrize("name,widths,lr,cap", [("Triple2vec", {"emb_dim": 64, "use_bias": True}, 5e-4, 10),
+@pytest.mark.parametrize("name,widths,lr,cap", [("Triple2vec", {"emb_dim": 64, "use_bias": True}, 5e-4, 5),
                                                 ("VBCAR", {"emb_dim": 64, "late_dim": 128, "alpha": 0.05}, 1e-3, 5),
                                                 ("TVBR", {"emb_dim": 64, "late_dim": 128, "time_step": 4}, 1e-3, 5)])
 def test_grocery_config_is_the_shipped_config_at_its_cap(name, widths, lr, cap):
@@ -820,3 +820,75 @@ def test_phase_38_band_is_the_jax_bf16_band():
     band = chip_smoke.MF_BF16_BAND
     assert chip_smoke.MF_BF16_EPOCHS == 10 and all(band[key][1] > 0 for key in ("valid", "test"))
     assert band["valid"][0] - 3 * band["valid"][1] > chip_smoke.UNTRAINED_NDCG  # it can fail an untrained model
+
+
+SMALL_RAW_SHAPES = {
+    "ml_100k": {"n_users": 60, "n_items": 150, "n_ratings": 3000, "min_per_user": 20},
+    "dunnhumby": {"n_households": 60, "n_products": 400, "baskets": (4, 10), "basket_size": (1, 8)},
+    "tafeng": {"n_users": 80, "n_products": 300, "baskets": (2, 8), "basket_size": (1, 8)},
+}
+
+_RAW_TWICE = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "beta_recsys_tpu"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+sys.path.insert(0, {repo!r})
+import chip_smoke
+for name, shape in {shapes!r}.items():
+    runs = [chip_smoke.preprocessed(name, 0, f"{root}/{{name}}/{{run}}", shape) for run in ("a", "b")]
+    assert runs[0][2] == runs[1][2], name
+    print(name, len(runs[0][2]))
+"""
+
+
+def test_phase_39_raw_files_preprocess_to_the_same_bytes_without_pandas(tmp_path):
+    """Phase 39's writers and each adapter's preprocess, twice in fresh
+    directories from one seed, with pandas, JAX and the JAX package
+    blocked: the interaction npz files are byte-equal."""
+    script = _RAW_TWICE.format(repo=chip_smoke.REPO, shapes=SMALL_RAW_SHAPES, root=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert [line.split()[0] for line in out.stdout.splitlines()] == list(SMALL_RAW_SHAPES)
+
+
+def test_phase_39_writes_the_published_shapes(tmp_path):
+    """ml-100k's u.data: 943 users, 1,682 items, 100,000 distinct ratings of
+    1-5, at least 20 a user; u.item's latin-1 titles; Ta-Feng's ids are
+    digit strings; each dataset's config is its shipped one."""
+    shape = chip_smoke.ML100K_SHAPE
+    assert shape == {"n_users": 943, "n_items": 1682, "n_ratings": 100_000, "min_per_user": 20}
+    assert chip_smoke.DUNNHUMBY_SHAPE["n_households"] == 2_500
+    assert chip_smoke.write_ml100k_raw(str(tmp_path), 0, **shape) == 100_000
+    rows = np.loadtxt(tmp_path / "ml-100k" / "u.data", dtype=np.int64)
+    assert rows.shape == (100_000, 4) and len({(u, i) for u, i in rows[:, :2].tolist()}) == 100_000
+    assert len(np.unique(rows[:, 0])) == 943 and rows[:, 1].max() <= 1682 and set(rows[:, 2]) == {1, 2, 3, 4, 5}
+    assert np.bincount(rows[:, 0])[1:].min() >= 20
+    assert "Café" in (tmp_path / "ml-100k" / "u.item").read_text(encoding="latin-1")
+    chip_smoke.write_tafeng_raw(str(tmp_path), 0, **SMALL_RAW_SHAPES["tafeng"])
+    order, *items, customer, date = (tmp_path / "train.txt").read_text().splitlines()[0].split("\t")
+    assert order.isdigit() and customer.isdigit() and all(i.isdigit() for i in items) and date[4] == "-"
+    for name, path in chip_smoke.RAW_CONFIGS.items():
+        config = chip_smoke.raw_config(name, 0, str(tmp_path), max_epoch=1)
+        assert config.dataset["dataset"] == name and config.dataset["n_test"] == 10
+        assert config.dataset["data_split"] == chip_smoke.load_config(os.path.join(chip_smoke.REPO, path)).dataset[
+            "data_split"]
+
+
+def test_phase_39_runs_its_checks_on_the_cpu(tmp_path, monkeypatch, none_is_the_cpu):
+    """Phase 39 at a small size on the CPU: each split from its raw files,
+    the feature vectors, MF on the lazy-Adam trainer (its "xla" rows here,
+    no kernel) to test(); an ndcg@10 at or below the floor fails."""
+    logged = []
+    monkeypatch.setattr(chip_smoke, "log", lambda phase, msg: logged.append((phase, msg)))
+    monkeypatch.setattr(chip_smoke, "RANDOM_NDCG", -1.0)
+    counts = chip_smoke.raw_adapters_phase(0, str(tmp_path / "a"), device="cpu", shapes=SMALL_RAW_SHAPES, epochs=1)
+    assert set(counts) == {"raw-ml_100k-train"} and not any(counts["raw-ml_100k-train"].values())
+    text = "\n".join(f"{phase}: {msg}" for phase, msg in logged)
+    for want in ("raw-ml_100k: configs/mf_default.json (leave_one_out, 10 copies of 100 negatives)",
+                 "raw-dunnhumby: configs/triple2vec_default.json (leave_one_basket",
+                 "raw-tafeng: configs/ultragcn_default.json (leave_one_out", "the same bytes",
+                 "make_fea_vec: user_feat (60, 32), item_feat (150, 20)", "phase 39 took"):
+        assert want in text, want
+    monkeypatch.setattr(chip_smoke, "RANDOM_NDCG", 1.0)
+    with pytest.raises(SystemExit):
+        chip_smoke.raw_adapters_phase(0, str(tmp_path / "b"), device="cpu", shapes=SMALL_RAW_SHAPES, epochs=1)

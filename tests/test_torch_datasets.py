@@ -2,7 +2,7 @@
 the committed ``datasets/synthetic_structured`` interaction npz and its
 ``leave_one_out`` train/valid/test equal to the committed files;
 ``load_split_dataset`` with every split alias returns the JAX package's
-frames; a download adapter raises; the sequence helpers equal JAX's."""
+frames; an adapter without its raw file raises; the sequence helpers equal JAX's."""
 
 import os
 
@@ -80,9 +80,12 @@ def test_unknown_split_and_dataset_raise(tmp_path):
 
 @pytest.mark.parametrize("name", ["ml_100k", "amazon_books", "tafeng", "instacart_25"])
 def test_a_download_adapter_raises(tmp_path, name):
+    """Without its raw file an adapter raises, naming the file and the raw
+    directory: the port downloads nothing."""
     assert name in DATASET_REGISTRY
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1 item 10"):
+    with pytest.raises(RuntimeError, match="downloads nothing") as err:
         load_split_dataset(_config(tmp_path, "leave_one_out", dataset=name))
+    assert os.path.join(str(tmp_path), "datasets", name, "raw") in str(err.value)
 
 
 def test_downloads_raise(tmp_path):

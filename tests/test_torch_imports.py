@@ -143,6 +143,31 @@ expand_grid([dict(name="lr", type="range", min=0.001, max=0.1, n=3)])
 SeqEvalEngine().sequential_evaluation(lambda p: torch.ones(p.shape[0], 4), [[1, 2, 3]], 3, top_n=2)
 Monitor(delay=0.01).stop()
 train_model.parse_args(argv=["--model", "mf", "--device", "cpu"])
+from beta_recsys_tpu_torch.data.auxiliary_data import Auxiliary
+from beta_recsys_tpu_torch.data.base_data import BaseData
+from beta_recsys_tpu_torch.data.data_loaders import instance_bce_loader, instance_bpr_loader
+from beta_recsys_tpu_torch.data.data_loaders import instance_mul_neg_loader, instance_vae_loader
+from beta_recsys_tpu_torch.datasets.raw_tables import epoch_seconds
+from beta_recsys_tpu_torch.utils import evaluation
+from beta_recsys_tpu_torch.utils.unigram_table import UnigramTable
+np = chip_smoke.np
+baskets = dict(n_products=50, baskets=(2, 4), basket_size=(1, 4))
+for name, shape in (("ml_100k", chip_smoke.ML100K_SHAPE), ("dunnhumby", dict(n_households=20, **baskets)),
+                    ("tafeng", dict(n_users=20, **baskets))):
+    chip_smoke.preprocessed(name, 0, tempfile.mkdtemp(), shape)
+for name in ("amazon_beauty", "yelp", "instacart_25", "lastfm-2k"):
+    DATASET_REGISTRY[name](root_dir=root)
+epoch_seconds(["2014-04-07T10:51:09.277Z"])
+Auxiliary(n_users=2, n_items=3).item_features(dim=4)
+small = BaseData((frame, frame, frame))
+for batches in (instance_bpr_loader(small, 2), instance_bce_loader(small, 2, 2), instance_vae_loader(small, 2),
+                instance_mul_neg_loader(small, 2, 2)):
+    list(batches)
+UnigramTable([1, 2, 3]).sample(4, np.random.default_rng(0))
+truth = dict(col_user=np.array([0, 0, 1]), col_item=np.array([1, 2, 0]), col_rating=np.array([1.0, 0.0, 1.0]))
+pred = dict(col_user=np.array([0, 0, 1]), col_item=np.array([1, 2, 0]), col_prediction=np.array([0.9, 0.1, 0.5]))
+for fn in evaluation.METRIC_FNS.values():
+    fn(truth, pred)
 print(len(names))
 """
 
