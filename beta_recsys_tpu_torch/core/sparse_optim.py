@@ -7,33 +7,61 @@ one device). Semantics are TF-style lazy Adam: the bias-correction step count
 is global over the whole run, and the gradient rows of an id that occurs
 several times in a batch are summed before one moment update.
 
-``row_update`` picks how the 2-D tables' rows are written back:
-  "fused" - the ``fused_rowadam`` CUDA kernel (``ops/kernels/rowadam.py``), in
-    place, one launch a step for all of them (``RowAdamTables``, its tables
-    and moments checked once); on CPU tensors its plain version;
-  "xla"   - ``sparse_adam_row_update``: gather, torch arithmetic, index_add_;
-  "auto"  - "fused" where the tables are on the card, "xla" on the CPU: as
+``row_update`` picks how the tables' rows are written back:
+  "fused"   - the ``fused_rowadam`` CUDA kernel (``ops/kernels/rowadam.py``),
+    in place, one launch a step for every 2-D table (``RowAdamTables``, its
+    tables and moments checked once); on CPU tensors its plain version;
+  "xla"     - ``sparse_adam_row_update``: gather, torch arithmetic, index_add_;
+  "unified" - every table in ONE (total_rows, 3*w_max) float32 [param|m|v]
+    array, packed at the start of an epoch (``run``/``run_batches``) and
+    unpacked into the model and ``state["moments"]`` at its end: roles
+    stacked at row offsets, a role's tables side by side (1-D biases as
+    width-1 columns). A step gathers the packed ids' parameter columns once,
+    takes autograd with respect to that one (L, w_max) leaf, dedups once and
+    writes once through ``fused_rowadam_packed`` (one launch; its plain
+    version on the CPU). Each table's "touched" mask stays its own;
+  "compact" - "unified" whose write keeps at most ``compact_capacity`` (C)
+    unique rows a step, the first C of the sorted packed ids; the others lose
+    that step's gradient, counted in ``state["dropped"]``. C defaults to the
+    JAX package's host estimate of a batch's unique ids x 1.25
+    (``compact_capacity_estimate``);
+  "unified_bf16" - the 2-D tables in ONE (total_rows, 4*w_max) int16 array of
+    [p_hi|p_lo|m_bf16|v_bf16] rows (``fused_rowadam_packed_bf16``): float32
+    master weights bit-exact, Adam moments rounded to bfloat16, half the
+    optimizer state's bytes; the 1-D biases take ``sparse_adam_row_update``;
+  "auto"    - "fused" where the tables are on the card, "xla" on the CPU: as
     the JAX package takes its kernel where one exists (the TPU) and "xla"
     elsewhere.
-1-D bias tables take ``sparse_adam_row_update`` under either. The JAX
-package's "unified", "compact" and "unified_bf16" are TPU row layouts and
-raise here. Tables and moments are updated in place.
+Under "fused" and "xla" the 1-D bias tables take ``sparse_adam_row_update``.
+Tables and moments are updated in place.
 
 ``ShardedSparseEpochTrainer`` is the counterpart of
 ``make_sharded_sparse_epoch_fn``: the same lazy Adam with tables and moments
 row-sharded over a mesh's "model" axis and batches over "data".
 """
 
+import contextlib
+
+import numpy as np
 import torch
 
-from ..ops.kernels.rowadam import RowAdamTables, adam_rows, bias_corrections
+from ..ops.kernels.rowadam import (
+    RowAdamPacked,
+    RowAdamTables,
+    adam_rows,
+    bias_corrections,
+    bias_denominators,
+    repack16,
+    unpack16_components,
+)
 from ..parallel.collectives import all_gather, psum
 from ..parallel.embedding import local_psum_gather, local_ring_gather, shard_table
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .mixed_precision import row_loss_with_dtype
 from .train_engine import EpochBatches
 
-TPU_ROW_LAYOUTS = ("unified", "compact", "unified_bf16")
+PACKED_LAYOUTS = ("unified", "compact", "unified_bf16")
+ROW_UPDATES = ("fused", "xla", *PACKED_LAYOUTS)
 
 
 def _segment_dedup(ids, rows):
@@ -71,9 +99,147 @@ def sparse_adam_row_update(table, m, v, ids, grad_rows, lr, step, b1=0.9, b2=0.9
 
 
 def init_sparse_state(params, table_names):
-    """Zero Adam moments for the sparse tables and the global step count."""
+    """Zero Adam moments for the sparse tables, the global step count and
+    ``dropped`` (a 0-d tensor on the tables' device: the unique ids whose
+    gradient a step dropped at the compact layout's capacity, over the run)."""
     moments = {name: (torch.zeros_like(params[name]), torch.zeros_like(params[name])) for name in table_names}
-    return {"moments": moments, "step": 0}
+    device = next(iter(params.values())).device
+    return {"moments": moments, "step": 0, "dropped": torch.zeros((), dtype=torch.long, device=device)}
+
+
+def _role_layout(model, params):
+    """The model's row tables grouped by batch role for the packed layouts:
+    {role: [(table name, width, ndim), ...]} in ``row_tables()`` order; 1-D
+    bias tables get width 1."""
+    roles = {}
+    for name, role in model.row_tables().items():
+        shape = params[name].shape
+        roles.setdefault(role, []).append((name, shape[1] if len(shape) == 2 else 1, len(shape)))
+    return roles
+
+
+def compact_capacity_estimate(users, items, batch_size):
+    """The JAX package's default capacity of the "compact" layout, draw for
+    draw: the largest share of unique ids over 4 sampled batches (users,
+    positives and uniform negatives; ``np.random.default_rng(0)``) x 1.25 of
+    the step's 3B ids, rounded up to 8 and at most 3B."""
+    rng = np.random.default_rng(0)
+    users, items = np.asarray(users), np.asarray(items)
+    n = len(users)
+    n_items = int(items.max()) + 1 if len(items) else 1
+    fracs = []
+    for _ in range(4):
+        sel = rng.integers(0, n, batch_size)
+        ids = np.concatenate([
+            users[sel].astype(np.int64),
+            items[sel].astype(np.int64) + (1 << 32),
+            rng.integers(0, n_items, batch_size) + (1 << 32),
+        ])
+        fracs.append(len(np.unique(ids)) / len(ids))
+    est = max(fracs) * 1.25
+    return min(-(-int(3 * batch_size * est) // 8) * 8, 3 * batch_size)
+
+
+def compact_rows(ids_s, g_d, capacity):
+    """The "compact" layout's capacity C on a step's sorted packed ids and
+    their deduplicated gradient rows: the first C unique ids keep their
+    gradient, the others' rows are zeroed (the lazy rule then skips them).
+    Returns (the gradient rows, the unique ids dropped as a 0-d tensor)."""
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[1:] = ids_s[1:] != ids_s[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    dropped = (seg[-1] + 1 - capacity).clamp(min=0)
+    return torch.where((seg < capacity)[:, None], g_d, 0.0), dropped
+
+
+class PackedRows:
+    """Where each row table lies in a packed array: roles (``_role_layout``)
+    stacked at row offsets ``base``, a role's tables side by side from column
+    0, ``w`` (w_max) the widest role. ``rects`` lists each table's rectangle
+    (row0, n_rows, col0, width), the kernel's tables, in order."""
+
+    def __init__(self, roles, role_rows):
+        self.roles, self.order = roles, list(roles)
+        self.rows = {role: role_rows[role] for role in roles}
+        self.w = max(sum(w for _, w, _ in specs) for specs in roles.values())
+        self.base, total = {}, 0
+        for role in self.order:
+            self.base[role] = total
+            total += self.rows[role]
+        self.total_rows = total
+        self.columns = []  # (name, ndim, row0, n_rows, col0, width)
+        for role in self.order:
+            off = 0
+            for name, w, nd in roles[role]:
+                self.columns.append((name, nd, self.base[role], self.rows[role], off, w))
+                off += w
+        self.rects = [(row0, n, col0, w) for _, _, row0, n, col0, w in self.columns]
+
+    def ids(self, role_ids):
+        """(packed ids (L,), [(role, start, end)]): each role's batch ids at
+        its row offset, concatenated in role order."""
+        parts, segments, start = [], [], 0
+        for role in self.order:
+            parts.append(role_ids[role] + self.base[role])
+            segments.append((role, start, start + role_ids[role].shape[0]))
+            start += role_ids[role].shape[0]
+        return torch.cat(parts), segments
+
+    def rows_of(self, prow, segments):
+        """{table name: its gathered rows}: slices of the (L, w) parameter
+        columns ``prow`` (1-D tables as vectors)."""
+        rows = {}
+        for role, a, b in segments:
+            off = 0
+            for name, w, nd in self.roles[role]:
+                part = prow[a:b, off:off + w]
+                rows[name] = part[:, 0] if nd == 1 else part
+                off += w
+        return rows
+
+    def _blocks(self, parts):
+        for name, nd, row0, n, col0, w in self.columns:
+            for c in range(parts):
+                yield name, nd, c, slice(row0, row0 + n), slice(c * self.w + col0, c * self.w + col0 + w)
+
+    def pack(self, params, moments):
+        """One (total_rows, 3w) float32 [param|m|v] array of every table."""
+        device = next(iter(params.values())).device
+        packed = torch.zeros((self.total_rows, 3 * self.w), dtype=torch.float32, device=device)
+        for name, nd, c, rows, cols in self._blocks(3):
+            src = (params[name], *moments[name])[c]
+            packed[rows, cols] = src[:, None] if nd == 1 else src
+        return packed
+
+    def unpack(self, packed, params, moments):
+        """Copy the packed tables and moments back into ``params`` and
+        ``moments`` (in place)."""
+        for name, _, c, rows, cols in self._blocks(3):
+            dst = (params[name], *moments[name])[c]
+            dst.copy_(packed[rows, cols].reshape(dst.shape))
+
+    def pack16(self, params, moments):
+        """One (total_rows, 4w) int16 [p_hi|p_lo|m_bf16|v_bf16] array of the
+        (2-D) tables."""
+        device = next(iter(params.values())).device
+        packed = torch.zeros((self.total_rows, 4 * self.w), dtype=torch.int16, device=device)
+        for name, _, row0, n, col0, w in self.columns:
+            comps = repack16(params[name], *moments[name])
+            for c in range(4):
+                packed[row0:row0 + n, c * self.w + col0:c * self.w + col0 + w] = comps[:, c * w:(c + 1) * w]
+        return packed
+
+    def unpack16(self, packed, params, moments):
+        """Copy the packed tables (exact) and moments (bfloat16 values) back
+        into ``params`` and ``moments`` (in place)."""
+        for role in self.order:
+            b0 = self.base[role]
+            p, m, v = unpack16_components(packed[b0:b0 + self.rows[role]], self.w)
+            off = 0
+            for name, w, _ in self.roles[role]:
+                for dst, src in zip((params[name], *moments[name]), (p, m, v)):
+                    dst.copy_(src[:, off:off + w])
+                off += w
 
 
 class SparseEpochTrainer(EpochBatches):
@@ -83,22 +249,20 @@ class SparseEpochTrainer(EpochBatches):
 
     ``run(generator)`` forms the epoch's batches and trains on them;
     ``run_batches(users, pos, neg)`` trains on given (num_batches, B) arrays.
-    Both return the mean batch loss as a 0-d device tensor.
+    Both return the mean batch loss as a 0-d device tensor. Under a packed
+    layout each of them (or a ``step`` called alone) packs the tables at its
+    start and unpacks them at its end, so between epochs the model and
+    ``state`` hold the tables as under "xla".
     """
 
     def __init__(self, model, train_arrays, batch_size, neg_sampler, lr, dense_optimizer, row_update="auto",
-                 compute_dtype=None):
+                 compute_dtype=None, compact_capacity=None):
         device = next(model.parameters()).device
         super().__init__(train_arrays, batch_size, neg_sampler, device)
         if row_update == "auto":
             row_update = "fused" if device.type == "cuda" else "xla"
-        if row_update in TPU_ROW_LAYOUTS:
-            raise NotImplementedError(
-                f"row_update={row_update!r} is a TPU row layout; whether the card wants one "
-                "waits for a measurement (ROADMAP.md, section 1 item 2, the rest of MF training)"
-            )
-        if row_update not in ("fused", "xla"):
-            raise ValueError(f"unknown row_update {row_update!r}; use 'fused', 'xla' or 'auto'")
+        if row_update not in ROW_UPDATES:
+            raise ValueError(f"unknown row_update {row_update!r}; use one of {ROW_UPDATES} or 'auto'")
         self.model = model
         self.row_loss = row_loss_with_dtype(model, compute_dtype)
         self.lr = float(lr)
@@ -114,12 +278,75 @@ class SparseEpochTrainer(EpochBatches):
         self.row_adam = RowAdamTables(
             [(self.tables[name].data, *self.state["moments"][name]) for name in self.fused]
         ) if self.fused else None
+        self.layout = self._packed_layout() if row_update in PACKED_LAYOUTS else None
+        self.bf16 = row_update == "unified_bf16" and self.layout is not None
+        if row_update == "compact" and compact_capacity is None:
+            compact_capacity = compact_capacity_estimate(train_arrays.users, train_arrays.items, self.batch_size)
+        self.compact_capacity = compact_capacity if row_update == "compact" else None
+        self._packed = self._write = None
+
+    def _packed_layout(self):
+        """The ``PackedRows`` of the packed layouts (2-D tables alone under
+        "unified_bf16"; None there if the model has none, and every table
+        takes ``sparse_adam_row_update``, as in the JAX package)."""
+        roles = _role_layout(self.model, self.tables)
+        role_rows = {}
+        for role, specs in roles.items():
+            heights = {self.tables[name].shape[0] for name, _, _ in specs}
+            if len(heights) != 1:
+                raise ValueError(f"tables of role {role!r} must share a row count, got {heights}")
+            role_rows[role] = heights.pop()
+        if self.row_update == "unified_bf16":
+            roles = {role: [s for s in specs if s[2] == 2] for role, specs in roles.items()}
+            roles = {role: specs for role, specs in roles.items() if specs}
+            if not roles:
+                return None
+        return PackedRows(roles, role_rows)
+
+    @property
+    def dropped(self):
+        return self.state["dropped"]
+
+    @contextlib.contextmanager
+    def _packed_epoch(self):
+        """Pack the tables and their moments for the steps inside, unpack them
+        after (nothing to do under "fused", "xla" or when already packed).
+        While packed, the packed array is the only copy: the packed tables'
+        and moments' own storage is released and allocated again to unpack
+        into, so the optimizer state takes the packed layout's bytes."""
+        if self.layout is None or self._packed is not None:
+            yield
+            return
+        params = {name: t.data for name, t in self.tables.items()}
+        moments = self.state["moments"]
+        with torch.no_grad():
+            self._packed = (self.layout.pack16 if self.bf16 else self.layout.pack)(params, moments)
+        self._write = RowAdamPacked(self._packed, self.layout.rects, bf16=self.bf16)
+        held = [t for name, *_ in self.layout.columns for t in (params[name], *moments[name])]
+        held = [(t.untyped_storage(), t.untyped_storage().nbytes()) for t in held if t.untyped_storage().resizable()]
+        for storage, _ in held:
+            storage.resize_(0)
+        try:
+            yield
+        finally:
+            for storage, nbytes in held:
+                storage.resize_(nbytes)
+            with torch.no_grad():
+                (self.layout.unpack16 if self.bf16 else self.layout.unpack)(self._packed, params, moments)
+            self._packed = self._write = None
+
+    def run_batches(self, users, pos, neg, generator=None):
+        with self._packed_epoch():
+            return super().run_batches(users, pos, neg, generator)
 
     def step(self, users, pos, neg, generator=None):
         """One batch: returns its loss as a 0-d device tensor (MF's row loss
         draws no dropout, so ``generator`` is unused)."""
         batch = {"users": users, "pos_items": pos, "neg_items": neg}
         role_ids = {"users": users, "items_cat": torch.cat([pos, neg])}
+        if self.layout is not None:
+            with self._packed_epoch():
+                return self._packed_step(batch, role_ids)
         # Gradients with respect to fresh leaves of the gathered rows, never
         # the tables: nothing table-sized is formed.
         rows = {
@@ -140,16 +367,52 @@ class SparseEpochTrainer(EpochBatches):
             if self.row_adam is not None:
                 deduped = [_segment_dedup(role_ids[self.table_roles[name]], g_rows[name]) for name in self.fused]
                 self.row_adam([ids for ids, _ in deduped], [g for _, g in deduped], bias_corrections(step), self.lr)
-        for p, g in zip(self.dense.values(), grads[len(rows):]):
-            p.grad = g
-        self.dense_optimizer.step()
+        self._dense_step(grads[len(rows):])
         return loss.detach()
 
+    def _packed_step(self, batch, role_ids):
+        """A step of a packed layout: one gather of the packed ids' parameter
+        columns, autograd with respect to that one (L, w_max) leaf, one
+        shared sort and dedup, one packed write (and, under "unified_bf16",
+        the bias tables' own lazy-Adam updates)."""
+        lay = self.layout
+        ids, segments = lay.ids(role_ids)
+        with torch.no_grad():
+            prow = (unpack16_components(self._packed[ids], lay.w)[0] if self.bf16
+                    else self._packed[:, :lay.w][ids])
+        prow.requires_grad_()
+        bias = {name: table.detach()[role_ids[self.table_roles[name]]].requires_grad_()
+                for name, table in self.tables.items() if self.bf16 and table.dim() == 1}
+        loss = self.row_loss({**lay.rows_of(prow, segments), **bias}, self.dense, batch)
+        grads = torch.autograd.grad(loss, [prow, *bias.values(), *self.dense.values()])
+        self.state["step"] += 1
+        step = self.state["step"]
+        with torch.no_grad():
+            ids_s, g_d = _segment_dedup(ids, grads[0])
+            if self.compact_capacity is not None:
+                g_d, dropped = compact_rows(ids_s, g_d, self.compact_capacity)
+                self.state["dropped"] += dropped
+            self._write(ids_s, g_d, bias_denominators(step), self.lr)
+            for name, g in zip(bias, grads[1:]):
+                m, v = self.state["moments"][name]
+                sparse_adam_row_update(self.tables[name].data, m, v, role_ids[self.table_roles[name]], g, self.lr,
+                                       step)
+        self._dense_step(grads[1 + len(bias):])
+        return loss.detach()
+
+
+    def _dense_step(self, grads):
+        for p, g in zip(self.dense.values(), grads):
+            p.grad = g
+        self.dense_optimizer.step()
+
     @torch.no_grad()
-    def load_state(self, moments, step):
+    def load_state(self, moments, step, dropped=0):
         """Set the tables' moments from ``{name: (m, v)}`` (rows past the
-        table's own, a sharded run's padding, are cut) and the global step."""
+        table's own, a sharded run's padding, are cut), the global step and
+        the dropped count."""
         self.state["step"] = int(step)
+        self.state["dropped"].fill_(int(dropped))
         for name, (m, v) in self.state["moments"].items():
             m.copy_(moments[name][0][: m.shape[0]])
             v.copy_(moments[name][1][: v.shape[0]])
@@ -386,10 +649,12 @@ class ShardedSparseEpochTrainer(EpochBatches):
                         p.copy_(params[name])
 
     @torch.no_grad()
-    def load_state(self, moments, step):
+    def load_state(self, moments, step, dropped=0):
         """Set the tables' moments from ``{name: (m, v)}``, whole tables,
-        padded or not, row-sharded as the tables are, and the global step."""
+        padded or not, row-sharded as the tables are, the global step and the
+        dropped count."""
         self.step_count = int(step)
+        self.dropped.fill_(int(dropped))
         for name, shards in self.moments.items():
             for i in (0, 1):
                 placed = shard_table(moments[name][i][: self.tables[name][0][0].shape[0] * self.n_model], self.mesh)

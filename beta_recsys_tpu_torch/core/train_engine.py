@@ -626,6 +626,7 @@ class TrainEngine:
                 print(f"[warn] sparse_optim requested but batch_kind={kind} has no row protocol; "
                       "using the dense path")
         self.sharded = self.sparse_optim and self.mesh is not None
+        self.dropped_grad_rows = 0  # the lazy-Adam trainer's dropped count at the last warning
         # The dense trainers' mesh (parallel/data_parallel.py): data shards,
         # and tables row-sharded by default_param_rule on a model axis.
         mesh = None if self.sharded else self.mesh
@@ -646,7 +647,7 @@ class TrainEngine:
                 capacity_factor=float(model_cfg.get("capacity_factor", 2.0)), compute_dtype=compute_dtype,
             )
             self.optimizer = self.epoch_fn.dense_optimizers[0][0]
-            self.dropped_grad_rows = self.lookup_overflow = 0
+            self.lookup_overflow = 0
         elif self.sparse_optim:
             from .sparse_optim import SparseEpochTrainer
 
@@ -753,8 +754,8 @@ class TrainEngine:
             t0 = time.perf_counter()
             loss = float(self.epoch_fn.run(self.generator))  # the epoch's one host read
             self.epoch_seconds.append(time.perf_counter() - t0)
-            if self.sharded:
-                self._after_sharded_epoch()
+            if self.sparse_optim:
+                self._after_sparse_epoch()
             elif self.mesh is not None:
                 self.epoch_fn.dp.assemble()
             valid_result = self.valid_evaluator.evaluate() if self.valid_evaluator else {}
@@ -819,21 +820,31 @@ class TrainEngine:
             raise ValueError(f"the mesh starts at {mesh.devices[0][0]}, the model lives on {self.device}")
         return mesh
 
-    def _after_sharded_epoch(self):
-        """Bring the tables' real rows to the model for evaluation, and warn
-        when a bucket overflowed (never silent): the bucketed exchange dropped
-        gradient rows, or the ring lookup served batch positions as zero rows."""
-        self.epoch_fn.assemble()
-        dropped, overflow = int(self.epoch_fn.dropped), int(self.epoch_fn.lookup_overflow)
+    def _after_sparse_epoch(self):
+        """After every lazy-Adam epoch, warn when gradient rows were dropped
+        (never silent): by the bucketed exchange on a mesh or the "compact"
+        layout's capacity on one device, as the JAX engine warns after every
+        sparse epoch. On a mesh also bring the tables' real rows to the model
+        for evaluation, and warn when the ring lookup served batch positions
+        as zero rows."""
+        if self.sharded:
+            self.epoch_fn.assemble()
+        dropped = int(self.epoch_fn.dropped)
         if dropped > self.dropped_grad_rows:
+            # The JAX engine's words on both paths; the advice is the path's own.
+            advice = ("raise model config capacity_factor or set grad_exchange='allgather'" if self.sharded else
+                      f"the \"compact\" layout's compact_capacity ({self.epoch_fn.compact_capacity}) is below a "
+                      "step's unique ids: raise it or set model config row_update='unified'")
             print(f"WARNING: sharded-sparse bucketed exchange dropped {dropped - self.dropped_grad_rows} gradient "
-                  f"rows this epoch (cumulative {dropped}) — raise model config capacity_factor or set "
-                  "grad_exchange='allgather'")
-        if overflow > self.lookup_overflow:
-            print(f"WARNING: sharded-sparse ring lookup served {overflow - self.lookup_overflow} batch positions as "
-                  f"zero rows this epoch (cumulative {overflow}) — raise model config capacity_factor or set "
-                  "lookup_strategy='psum'")
-        self.dropped_grad_rows, self.lookup_overflow = dropped, overflow
+                  f"rows this epoch (cumulative {dropped}) — {advice}")
+        self.dropped_grad_rows = dropped
+        if self.sharded:
+            overflow = int(self.epoch_fn.lookup_overflow)
+            if overflow > self.lookup_overflow:
+                print(f"WARNING: sharded-sparse ring lookup served {overflow - self.lookup_overflow} batch positions "
+                      f"as zero rows this epoch (cumulative {overflow}) — raise model config capacity_factor or set "
+                      "lookup_strategy='psum'")
+            self.lookup_overflow = overflow
 
     # -- checkpoints ----------------------------------------------------------------
 
@@ -918,7 +929,8 @@ class TrainEngine:
     def _restore_opt_state(self, tree):
         """Load an optimizer state tree of ``_opt_state_tree``'s layout (the
         JAX package's dense optax state) into the optimizer and, for the
-        lazy-Adam trainers, their table moments and step, in place. Adam's
+        lazy-Adam trainers, their table moments and step (and the dropped
+        count that ``resume_checkpoint`` read), in place. Adam's
         count becomes every parameter's step; a count of 0 leaves the
         optimizer fresh, as optax's initial state is."""
         optimizer = self.config.model.get("optimizer", "adam")
@@ -934,7 +946,7 @@ class TrainEngine:
         mu, nu = flatten_params(head["mu"]), flatten_params(head["nu"])
         if self.sparse_optim:
             moments = {name: (mu[name], nu[name]) for name in self.model.row_tables()}
-            self.epoch_fn.load_state(moments, count)
+            self.epoch_fn.load_state(moments, count, self.dropped_grad_rows)
         self._load_param_states({name: {"step": torch.tensor(float(count), dtype=torch.float32),
                                         "exp_avg": mu[name], "exp_avg_sq": nu[name]} if count else None
                                  for name in names})
@@ -958,6 +970,7 @@ class TrainEngine:
                 self.epoch_fn.place()
             elif getattr(self.epoch_fn, "dp", None) is not None:
                 self.epoch_fn.dp.place()
+            self.dropped_grad_rows = int(raw.get("dropped", 0))
             self._restore_opt_state(raw["opt_state"])
         state = raw.get("torch_rng")
         if state is not None and np.asarray(state).size == self.generator.get_state().numel():
@@ -1042,17 +1055,21 @@ class TrainEngine:
         what serving restores); ``kind="last"`` writes ``<checkpoint_dir>/last/``.
         The file holds ``params`` in the JAX layout, the optimizer state
         (``_opt_state_tree``), ``rng`` (key data) and ``torch_rng`` (the
-        generator's state)."""
+        generator's state); a lazy-Adam run also ``dropped``, the JAX sparse
+        state's count of dropped gradient rows (beside the optax tree, whose
+        named tuples the JAX package's load holds to their fields)."""
         ckpt_dir = self.checkpoint_dir if kind == "best" else os.path.join(self.checkpoint_dir, "last")
         # A sharded run writes its row tables padded to the model axis, as the
         # JAX package does.
         params = self.epoch_fn.padded_params() if self.sharded else self.model.state_dict()
         generator_state = self.generator.get_state().numpy()
+        dropped = {"dropped": np.int32(int(self.epoch_fn.dropped))} if self.sparse_optim else {}
         save_checkpoint(ckpt_dir, {
             "params": params_to_jax(params),
             "opt_state": self._opt_state_tree(),
             "rng": _key_data(generator_state),
             "torch_rng": generator_state,
+            **dropped,
         }, backend=self.config.system.get("checkpoint_backend", "flax"))
         save_metadata(ckpt_dir, {
             "kind": kind,

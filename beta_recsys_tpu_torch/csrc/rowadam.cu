@@ -48,13 +48,47 @@
 // Ids outside [0, n_rows) are not written (a wrong id must not overwrite
 // another allocation); the trainer's ids are the data's dense ids.
 //
-// Interface: a plain C function (no PyTorch headers), built by nvcc into a
-// shared library and called through ctypes with a pointer to a RowAdamCall.
-// It launches on the given stream, does not synchronise, and returns
-// cudaGetLastError().
+// Packed row layouts. fused_rowadam_packed and fused_rowadam_packed_bf16
+// are the row write of the lazy-Adam trainer's "unified"/"compact" and
+// "unified_bf16" layouts (beta_recsys_tpu/core/sparse_optim.py:380-700,
+// which the JAX package leaves to XLA): every row table of a step lives in
+// one array, each table a rectangle of it (a row range, a column offset and
+// a width); roles stack vertically, a role's tables sit side by side.
+//   fp32: rows of stride 3*w, [param | m | v], each w float32 wide;
+//   bf16: rows of stride 4*w uint16, [p_hi | p_lo | m | v]: the float32
+//         parameter split into its two 16-bit halves (bit-exact master
+//         weights) and the moments rounded to bfloat16.
+// One sorted, deduplicated id array (packed row ids) and its (L, w) float32
+// gradients serve every table. A table of a row is touched when the row's id
+// lies in its row range and its gradient columns are not all zero; only a
+// touched table's columns update, in the order of the plain version
+// (ops/kernels/rowadam.py, which follows the JAX package's epoch function):
+//   m' = b1*m + (1-b1)*g;  v' = b2*v + (1-b2)*(g*g)
+//   delta = (-lr * (m'/d1)) / (sqrt(v'/d2) + eps),  d = 1 - b^t
+//   fp32: p += delta; m += (m' - m); v += (v' - v)
+//   bf16: p += delta; m, v = bfloat16(m'), bfloat16(v') round to nearest even
+// Untouched columns keep their bytes, rows of ids outside every table are
+// not written, and a duplicate id (its gradient row all zero) writes nothing,
+// so one launch a step is race-free. One warp a row, a lane a column: a
+// simple first design. The work is bound by bytes: each touched row reads and
+// writes its 3*w float32 (bf16: 4*w uint16) and reads its gradient row.
+//
+// Interface: plain C functions (no PyTorch headers), built by nvcc into a
+// shared library and called through ctypes with a pointer to a RowAdamCall
+// or a RowAdamPackedCall. Each launches on the given stream, does not
+// synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// One table of a packed call: rows [row0, row0 + n_rows) of the packed
+// array, columns [col0, col0 + width) of each component.
+struct PackedRect {
+  long long row0;
+  long long n_rows;
+  int col0;
+  int width;
+};
 
 namespace {
 
@@ -167,6 +201,84 @@ rowadam_kernel(const __grid_constant__ KernelArgs args) {
   }
 }
 
+struct PackedArgs {
+  void* packed;
+  const int64_t* ids;
+  const float* grads;
+  int n_ids;
+  int w;
+  int count;
+  PackedRect t[kMaxTables];
+  float lr, b1, omb1, b2, omb2, eps, d1, d2;
+};
+
+// The packed update of one column, each operation rounded on its own.
+__device__ __forceinline__ void packed_adam(const PackedArgs& a, float g, float m, float v, float& m_new,
+                                            float& v_new, float& delta) {
+  m_new = __fadd_rn(__fmul_rn(a.b1, m), __fmul_rn(a.omb1, g));
+  v_new = __fadd_rn(__fmul_rn(a.b2, v), __fmul_rn(a.omb2, __fmul_rn(g, g)));
+  const float m_hat = __fdiv_rn(m_new, a.d1);
+  const float v_hat = __fdiv_rn(v_new, a.d2);
+  delta = __fdiv_rn(__fmul_rn(-a.lr, m_hat), __fadd_rn(__fsqrt_rn(v_hat), a.eps));
+}
+
+// float32 -> bfloat16 bits, round to nearest even (NaN stays a quiet NaN), as
+// torch's and XLA's conversions round.
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return static_cast<uint16_t>((u >> 16) | 0x40u);
+  return static_cast<uint16_t>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+packed_rowadam_kernel(const __grid_constant__ PackedArgs args) {
+  const int r = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (r >= args.n_ids) return;  // uniform across the warp
+  const int lane = threadIdx.x % 32;
+  const int64_t id = args.ids[r];
+  const float* g_row = args.grads + static_cast<int64_t>(r) * args.w;
+  // Bit t: table t holds the id and its gradient columns are not all zero.
+  unsigned touched = 0;
+  for (int t = 0; t < args.count; ++t) {
+    const PackedRect& rc = args.t[t];
+    bool nonzero = false;
+    for (int j = rc.col0 + lane; j < rc.col0 + rc.width; j += 32) nonzero |= g_row[j] != 0.f;
+    const bool holds = id >= rc.row0 && id < rc.row0 + rc.n_rows;  // uniform: one id a warp
+    if (__any_sync(kFullMask, nonzero) && holds) touched |= 1u << t;
+  }
+  if (!touched) return;  // untouched or outside every table: no read, no write
+  const int w = args.w;
+  for (int j = lane; j < w; j += 32) {
+    bool mine = false;
+    for (int t = 0; t < args.count; ++t) {
+      mine |= ((touched >> t) & 1u) && j >= args.t[t].col0 && j < args.t[t].col0 + args.t[t].width;
+    }
+    if (!mine) continue;
+    const float g = g_row[j];
+    float m_new, v_new, delta;
+    if (kBf16) {
+      uint16_t* row = static_cast<uint16_t*>(args.packed) + id * 4 * w;
+      const float p = __uint_as_float((static_cast<uint32_t>(row[j]) << 16) | row[w + j]);
+      const float m = __uint_as_float(static_cast<uint32_t>(row[2 * w + j]) << 16);
+      const float v = __uint_as_float(static_cast<uint32_t>(row[3 * w + j]) << 16);
+      packed_adam(args, g, m, v, m_new, v_new, delta);
+      const uint32_t pu = __float_as_uint(__fadd_rn(p, delta));
+      row[j] = static_cast<uint16_t>(pu >> 16);
+      row[w + j] = static_cast<uint16_t>(pu & 0xffffu);
+      row[2 * w + j] = bf16_bits(m_new);
+      row[3 * w + j] = bf16_bits(v_new);
+    } else {
+      float* row = static_cast<float*>(args.packed) + id * 3 * w;
+      const float p = row[j], m = row[w + j], v = row[2 * w + j];
+      packed_adam(args, g, m, v, m_new, v_new, delta);
+      row[j] = __fadd_rn(p, delta);
+      row[w + j] = __fadd_rn(m, __fsub_rn(m_new, m));
+      row[2 * w + j] = __fadd_rn(v, __fsub_rn(v_new, v));
+    }
+  }
+}
+
 }  // namespace
 
 // One table of a call, as the wrapper fills it: table, m, v (n_rows, d)
@@ -249,4 +361,89 @@ extern "C" int fused_rowadam_tables(const RowAdamCall* call, int device, void* s
     if (err == cudaSuccess) err = back;
   }
   return static_cast<int>(err);
+}
+
+// A packed call: the packed array (total_rows rows of 3*w float32, or 4*w
+// uint16 for the bf16 form), contiguous and updated in place; ids (n_ids,)
+// int64 sorted, duplicates carrying all-zero gradient rows; grads (n_ids, w)
+// float32, contiguous; up to kMaxTables disjoint rectangles inside the array;
+// the Adam constants (omb = 1 - b rounded once from double) and the bias
+// denominators d1 = 1 - b1^t, d2 = 1 - b2^t in float32.
+struct RowAdamPackedCall {
+  void* packed;
+  const void* ids;
+  const void* grads;
+  long long total_rows;
+  int n_ids;
+  int w;
+  int count;
+  PackedRect t[kMaxTables];
+  float lr;
+  float b1;
+  float omb1;
+  float b2;
+  float omb2;
+  float eps;
+  float d1;
+  float d2;
+};
+
+namespace {
+
+template <bool kBf16>
+int launch_packed(const RowAdamPackedCall* call, int device, void* stream) {
+  if (call == nullptr || call->count < 1 || call->count > kMaxTables || call->n_ids < 0 || call->w <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PackedArgs args{};
+  args.packed = call->packed;
+  args.ids = static_cast<const int64_t*>(call->ids);
+  args.grads = static_cast<const float*>(call->grads);
+  args.n_ids = call->n_ids;
+  args.w = call->w;
+  args.count = call->count;
+  for (int i = 0; i < call->count; ++i) {
+    const PackedRect& rc = call->t[i];
+    if (rc.row0 < 0 || rc.n_rows < 0 || rc.row0 + rc.n_rows > call->total_rows || rc.col0 < 0 || rc.width < 0 ||
+        rc.col0 + rc.width > call->w) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    args.t[i] = rc;
+  }
+  args.lr = call->lr;
+  args.b1 = call->b1;
+  args.omb1 = call->omb1;
+  args.b2 = call->b2;
+  args.omb2 = call->omb2;
+  args.eps = call->eps;
+  args.d1 = call->d1;
+  args.d2 = call->d2;
+  if (call->n_ids == 0) return static_cast<int>(cudaSuccess);
+
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (call->n_ids + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  packed_rowadam_kernel<kBf16><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(args);
+  err = cudaGetLastError();
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// The "unified"/"compact" row write: float32 [param | m | v] rows, in place,
+// one launch on the given stream of the given device.
+extern "C" int fused_rowadam_packed(const RowAdamPackedCall* call, int device, void* stream) {
+  return launch_packed<false>(call, device, stream);
+}
+
+// The "unified_bf16" row write: uint16 [p_hi | p_lo | m_bf16 | v_bf16] rows,
+// in place, one launch on the given stream of the given device.
+extern "C" int fused_rowadam_packed_bf16(const RowAdamPackedCall* call, int device, void* stream) {
+  return launch_packed<true>(call, device, stream);
 }

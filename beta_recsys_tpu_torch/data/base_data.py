@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import scipy.sparse as sp
 
+from ..utils.common import normalized_adj_single
 from ..utils.constants import DEFAULT_ITEM_COL, DEFAULT_RATING_COL, DEFAULT_USER_COL
 
 
@@ -204,8 +205,8 @@ class BaseData:
         """(A, D^-1 (A + I), D^-1 A) as scipy CSR, each row-normalized by its
         own degrees (JAX ``create_adj_mat``, ``data/base_data.py:232-246``)."""
         adj = self._bipartite()
-        norm_adj = _row_normalize(adj + sp.eye(adj.shape[0], dtype=np.float32))
-        mean_adj = _row_normalize(adj)
+        norm_adj = normalized_adj_single(adj + sp.eye(adj.shape[0], dtype=np.float32))
+        mean_adj = normalized_adj_single(adj)
         return adj.tocsr(), norm_adj.tocsr(), mean_adj.tocsr()
 
     def get_adj_mat(self, config=None, cache_dir=None):
@@ -339,10 +340,3 @@ class BaseData:
                 out.append(vecs.astype(np.float32))
             self._graph_embeddings_cache[key] = tuple(out)
         return self._graph_embeddings_cache[key]
-
-
-def _row_normalize(adj):
-    """D^-1 A of a scipy sparse matrix (rows of degree 0 stay 0), as COO."""
-    rowsum = np.array(adj.sum(1)).flatten()
-    d_inv = np.where(rowsum > 0, 1.0 / np.maximum(rowsum, 1e-12), 0.0)
-    return sp.diags(d_inv).dot(adj).tocoo()

@@ -1,5 +1,6 @@
 """Host-side helpers: the npz frame codec, seeding, CLI arguments, the
-results CSV, timing and JSON.
+results CSV, timing, JSON, attribute access to a dict, unpacking a local
+zip archive and the row normalization of a sparse matrix.
 
 Counterpart of ``beta_recsys_tpu/utils/common.py`` without pandas: a frame is
 a dict of equal-length numpy columns keyed by the column names of
@@ -198,6 +199,34 @@ def str2bool(v):
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise ValueError(f"Boolean value expected, got {v!r}.")
+
+
+class DictToObject:
+    """Wrap a dict so keys are attribute-accessible (recursively)."""
+
+    def __init__(self, dictionary):
+        for key, val in dictionary.items():
+            if isinstance(val, dict):
+                val = DictToObject(val)
+            setattr(self, key, val)
+
+
+def un_zip(file_name, target_dir=None):
+    """Unzip a local zip archive into target_dir (defaults to its directory)."""
+    if target_dir is None:
+        target_dir = os.path.dirname(file_name)
+    with zipfile.ZipFile(file_name) as zf:
+        zf.extractall(target_dir)
+
+
+def normalized_adj_single(adj):
+    """Row-normalize a scipy sparse matrix: D^-1 A as COO (rows of degree 0
+    stay 0)."""
+    import scipy.sparse as sp
+
+    rowsum = np.array(adj.sum(1)).flatten()
+    d_inv = np.where(rowsum > 0, 1.0 / np.maximum(rowsum, 1e-12), 0.0)
+    return sp.diags(d_inv).dot(adj).tocoo()
 
 
 def write_json(obj, path):

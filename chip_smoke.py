@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (beta_recsys_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only | --mesh-only | --profile PHASE]
+    python3 chip_smoke.py [--seed 0] [--sharded-only | --ring-only | --mesh-only | --layouts-only | --profile PHASE]
 
 Phases, each printed with the seconds elapsed:
   0. environment: the card (nvidia-smi), torch and CUDA versions, TF32 flags;
@@ -247,21 +247,39 @@ Phases, each printed with the seconds elapsed:
      twice in fresh directories and must write the same bytes; the phase
      prints the seconds to preprocess and to split, the rows before and
      after the k-core, examples/s and the launches;
- 40. a JSON line of every kernel with its launches on each path, counted
+ 40. the lazy-Adam trainer's packed row layouts: fused_rowadam_packed and
+     fused_rowadam_packed_bf16 bit for bit against their plain versions at
+     MF's step (943 and 1,682 rows of emb 64 and a bias, mf_default.json's
+     B 400, so L 1,200) and at table scale (1,000,000 users and 100,000
+     items, B 16,384, zipf ids), with times (a call, the device's, the plain
+     version, one torch.optim.SparseAdam step) and bounds, and the float32
+     one again at MF's step after "compact"'s cut to its default capacity
+     and to capacity 16; mf_default.json (sparse_optim
+     true) under "unified", "compact" and "unified_bf16" at
+     MF_SPARSE_EPOCHS: one packed launch a step, best valid and test
+     ndcg@10 inside the JAX band of the layout, examples/s beside phase
+     3's; "compact" at its default capacity dropping JAX's count, and at
+     capacity 16 dropping rows, counted and warned once an epoch; the
+     optimizer state's bytes of both forms at table scale (the memory held
+     while packed, the peak of the packing) and their ratio;
+ 41. a JSON line of every kernel with its launches on each path, counted
      from 0 around that path's own calls.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. With --sharded-only it builds the ring kernel alone and runs
 phases 11-16, on 4 cards without the one-card trainings of 13-15 (the
 4-card call's); with --ring-only, phases 11-12 and no result line (it
 drives no path); with --mesh-only, the four kernels built and phase 37
-alone, with no result line; with --profile <phase> ..., only those phases'
-profiles and no result line. Imports nothing of JAX or of the JAX package.
+alone, with no result line; with --layouts-only, the rowadam kernels built and
+phases 3 and 40 alone, with no result line; with --profile <phase> ...,
+only those phases' profiles and no result line. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
 import collections
+import contextlib
 import copy
 import csv
+import io
 import json
 import os
 import subprocess
@@ -292,9 +310,11 @@ from beta_recsys_tpu_torch.core.eval_engine import (  # noqa: E402
 )
 from beta_recsys_tpu_torch.core.recommender import recommend_route  # noqa: E402
 from beta_recsys_tpu_torch.core.sparse_optim import (  # noqa: E402
+    PackedRows,
     ShardedSparseEpochTrainer,
     SparseEpochTrainer,
     _segment_dedup,
+    compact_rows,
 )
 from beta_recsys_tpu_torch.core.train_engine import (  # noqa: E402
     SequenceEpochTrainer,
@@ -340,12 +360,20 @@ from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.philox import dropout_keep_mask  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.ring_exchange import ring_allgather, ring_allgather_reference  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.rowadam import (  # noqa: E402
+    RowAdamPacked,
     bias_corrections,
+    bias_denominators,
     fused_rowadam,
+    fused_rowadam_packed,
+    fused_rowadam_packed_bf16,
+    fused_rowadam_packed_bf16_reference,
+    fused_rowadam_packed_reference,
     fused_rowadam_reference,
+    packed_touched,
 )
 from beta_recsys_tpu_torch.parallel.collectives import recording  # noqa: E402
 from beta_recsys_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from beta_recsys_tpu_torch.models.mf import MF  # noqa: E402
 from beta_recsys_tpu_torch.models.ncf import NeuMF  # noqa: E402
 from beta_recsys_tpu_torch.recommenders import (  # noqa: E402
     BUIR,
@@ -406,11 +434,13 @@ EXPECTED_MF_METRICS = {
 # 0.0036). Dense, seeds 0-2: PARITY_RESULTS.md, MF row.
 SPARSE_BAND = {"valid": (0.20631387680768967, 0.002780269790554314),
                "test": (0.1743064731359482, 0.0070542290529480465)}
-# Phase 3 runs MF_SPARSE_EPOCHS epochs (the JAX seeds' best epochs are 12-44
-# of 33-65 run to early stop), against the same seeds read at that cap.
-MF_SPARSE_EPOCHS = 10
-SPARSE_BAND_AT_CAP = {"valid": (0.1957789182662964, 0.0029097835271267155),
-                      "test": (0.17343872487545015, 0.007819176011082916)}
+# Phase 3 (and phase 40's three layouts) run MF_SPARSE_EPOCHS epochs (the
+# JAX seeds' best epochs are 12-44 of 33-65 run to early stop), against the
+# same seeds read at that cap (5 since phase 40 came: the band at 10 was
+# (0.195779 +- 0.002910, 0.173439 +- 0.007819)).
+MF_SPARSE_EPOCHS = 5
+SPARSE_BAND_AT_CAP = {"valid": (0.19002994596958162, 0.004537321237357515),
+                      "test": (0.16690947562456132, 0.007891634064334789)}
 DENSE_BAND = {"test": (0.1893, 0.0097)}
 # Phase 4's dense trainer stops at MF_DENSE_EPOCHS: seed 0's run to early
 # stop had its best epoch at 14 of 35, so the capped run's best, and its
@@ -749,13 +779,13 @@ BF16_STEPS = 5  # phase 38: SASRec's bfloat16 steps, card against the CPU
 BF16_TOL = 2e-2  # phase 38: those steps' losses (relative), parameters and moments, bfloat16 on both sides
 BF16_SASREC_EPOCHS = 2  # phase 38's bfloat16 SASRec training
 BF16_TEST_TOL = 1e-3  # phase 38: test() of the bfloat16 SASRec, card against the CPU
-MF_BF16_EPOCHS = 10  # phase 38's bfloat16 lazy-Adam MF training
+MF_BF16_EPOCHS = 5  # phase 38's bfloat16 lazy-Adam MF training (10 before phase 40 came)
 # (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
 # package's MF + BPR lazy-Adam training in bfloat16 (model.compute_dtype),
 # read at MF_BF16_EPOCHS: `JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py
 # --compute_dtype bfloat16`.
-MF_BF16_BAND = {"valid": (0.1963813856244087, 0.003593818307537878),
-                "test": (0.17418453246355056, 0.007618827757504749)}
+MF_BF16_BAND = {"valid": (0.18792699724435807, 0.005163802040448501),
+                "test": (0.16793174892663956, 0.009733372578416027)}
 RATES = {}  # phase -> its training's examples or sequences a second, each epoch
 SASREC_MESH_STEPS = 5  # phase 37: SASRec's steps at the shipped dropout on a (4, 1) mesh, card against the CPU
 MESH_EVAL_TOL = 1e-6  # phase 37: a mesh's evaluators against one device's
@@ -2074,13 +2104,16 @@ def ring_entry(rows, launches):
 def zero_kernel_counts():
     flash_causal_attention.launches = flash_causal_attention_bwd.launches = 0
     fused_rowadam.launches = ring_allgather.launches = 0
+    fused_rowadam_packed.launches = fused_rowadam_packed_bf16.launches = 0
 
 
 def kernel_counts():
     """Each kernel's launches since the counts were last set to 0."""
     return {"flash_causal_attention_fwd": flash_causal_attention.launches,
             "flash_causal_attention_bwd": flash_causal_attention_bwd.launches,
-            "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches}
+            "fused_rowadam": fused_rowadam.launches, "ring_allgather": ring_allgather.launches,
+            "fused_rowadam_packed": fused_rowadam_packed.launches,
+            "fused_rowadam_packed_bf16": fused_rowadam_packed_bf16.launches}
 
 
 def check_no_kernel(path):
@@ -4324,6 +4357,278 @@ def raw_adapters_phase(seed, root_dir, device="cuda", shapes=None, epochs=RAW_MF
     return {"raw-ml_100k-train": counts}
 
 
+# -- the lazy-Adam trainer's packed row layouts (phase 40) -----------------------------
+
+LAYOUTS = ("unified", "compact", "unified_bf16")
+# (mean, sample std) of best valid and test ndcg@10 over seeds 0-9 of the JAX
+# package's MF + BPR lazy-Adam training under each layout, read at
+# MF_SPARSE_EPOCHS: "unified" and "compact" (at its default capacity, which
+# dropped nothing in any seed: JAX_COMPACT_DROPPED) follow "xla"'s trajectory
+# up to float reassociation, so SPARSE_BAND_AT_CAP holds them ("compact"'s
+# own ten seeds at cap 5: 0.189701 +- 0.004629, 0.166553 +- 0.007077);
+# "unified_bf16" rounds its moments to bfloat16 and has its own band,
+# `JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py --row_update
+# unified_bf16`.
+LAYOUT_BF16_BAND = {"valid": (0.19093503803014755, 0.005643520068059012),
+                    "test": (0.17053362876176834, 0.007207951757423642)}
+JAX_COMPACT_DROPPED = 0  # seed 0's dropped count at the default capacity: `jax_mf_band.py --row_update compact`
+COMPACT_STARVED = 16  # a capacity far below a step's ~1,000 unique ids: every step drops rows
+# The packed write's shapes: MF's step (the structured split's tables, emb 64
+# and a bias column, L = 3B ids at mf_default.json's B 400, the layout
+# trainings' batch) and a table-scale step (bench.py's bench_sparse_large
+# tables, zipf ids, B 16,384).
+PACKED_MF_STEP = {"n_users": 943, "n_items": 1682, "emb_dim": 64, "batch": 400, "zipf": False}
+PACKED_SCALE = {"n_users": 1_000_000, "n_items": 100_000, "emb_dim": 64, "batch": 16_384, "zipf": True}
+
+
+def layout_band(layout):
+    return LAYOUT_BF16_BAND if layout == "unified_bf16" else SPARSE_BAND_AT_CAP
+
+
+def packed_layout(n_users, n_items, d, bf16):
+    """MF's ``PackedRows``: user_emb and user_bias side by side in the users'
+    rows, item_emb and item_bias in the items' (the embeddings alone under
+    the bfloat16 form)."""
+    roles = {"users": [("user_emb", d, 2), ("user_bias", 1, 1)], "items_cat": [("item_emb", d, 2), ("item_bias", 1, 1)]}
+    if bf16:
+        roles = {role: specs[:1] for role, specs in roles.items()}
+    return PackedRows(roles, {"users": n_users, "items_cat": n_items})
+
+
+def packed_inputs(n_users, n_items, emb_dim, batch, zipf, seed, bf16, device="cuda"):
+    """(layout, packed array, sorted packed ids, their deduplicated gradient
+    rows) for one MF step on ``device``: random tables and moments, B user
+    ids and 2B item ids (zipf-distributed or uniform), every 7th gradient row
+    zero."""
+    rng = np.random.default_rng(seed)
+    layout = packed_layout(n_users, n_items, emb_dim, bf16)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, moments = {}, {}
+    for name, nd, _, n, _, w in layout.columns:
+        shape = (n, w) if nd == 2 else (n,)
+        params[name] = torch.randn(shape, generator=gen, device=device)
+        moments[name] = (0.1 * torch.randn(shape, generator=gen, device=device),
+                         (0.1 * torch.randn(shape, generator=gen, device=device)).abs())
+    packed = (layout.pack16 if bf16 else layout.pack)(params, moments)
+
+    def draw(n, size):
+        return (rng.zipf(1.2, size) - 1) % n if zipf else rng.integers(0, n, size)
+
+    role_ids = {"users": torch.as_tensor(draw(n_users, batch), device=device),
+                "items_cat": torch.as_tensor(draw(n_items, 2 * batch), device=device)}
+    ids, _ = layout.ids(role_ids)
+    grads = torch.randn(ids.shape[0], layout.w, generator=gen, device=device)
+    grads[::7] = 0.0
+    return (layout, packed, *_segment_dedup(ids, grads))
+
+
+def packed_bound(touched, w, n_ids, bf16):
+    """(bound_ms, bound_by) of one packed write: each touched row reads and
+    writes its [param|m|v] (3w float32) or [p_hi|p_lo|m|v] (4w uint16) row,
+    every gradient row (w float32) and id (8 bytes) is read once; ~14 FLOPs
+    a touched element over the float32 peak."""
+    row_bytes = 2 * 4 * w * 2 if bf16 else 6 * w * 4
+    nbytes = touched * row_bytes + n_ids * (w * 4 + 8)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 14 * touched * w / PEAK_FLOPS[torch.float32] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def compare_packed(bf16, shape, seed, timed=True, capacity=None):
+    """One packed entry point against its plain version on one MF step's
+    inputs, bit for bit, after "compact"'s cut to ``capacity`` unique ids
+    when one is given (compact_rows, as the trainer applies it); its times
+    when ``timed`` (a call by CUDA events, the device's time queued behind a
+    sleep kernel, the plain version, one torch.optim.SparseAdam step over
+    the same rows as the yardstick) and its bound. Returns a row."""
+    name = "fused_rowadam_packed_bf16" if bf16 else "fused_rowadam_packed"
+    kernel = fused_rowadam_packed_bf16 if bf16 else fused_rowadam_packed
+    plain = fused_rowadam_packed_bf16_reference if bf16 else fused_rowadam_packed_reference
+    layout, packed, ids, grads = packed_inputs(**shape, seed=seed, bf16=bf16)
+    dropped = 0
+    if capacity is not None:
+        grads, dropped = compact_rows(ids, grads, capacity)
+        dropped = int(dropped)
+    denoms, lr = bias_denominators(3), 0.05
+    want = plain(packed.clone(), layout.rects, ids, grads, denoms, lr)
+    launches = kernel.launches
+    got = kernel(packed.clone(), layout.rects, ids, grads, denoms, lr)
+    torch.cuda.synchronize()
+    touched = int(packed_touched(layout.rects, ids, grads).any(dim=1).sum())
+    row = {"shape": [layout.total_rows, (4 if bf16 else 3) * layout.w], "dtype": "int16" if bf16 else "float32",
+           "n_ids": int(ids.shape[0]), "ids": "zipf" if shape["zipf"] else "uniform", "touched_rows": touched,
+           "max_abs_err": 0.0}
+    if kernel.launches != launches + 1:
+        fail(f"{name} launched {kernel.launches - launches} times for one call: {row}")
+    if not torch.equal(got, want):
+        wrong = int((got != want).any(dim=1).sum())
+        if not bf16:
+            row["max_abs_err"] = float((got - want).abs().max())
+        fail(f"{name} disagrees with its plain version in {wrong} rows: {row}")
+    if torch.equal(got, packed):
+        fail(f"{name} wrote nothing: {row}")
+    if capacity is not None:
+        row.update(capacity=capacity, dropped=dropped)
+        log("layouts", f"{name} {row['shape']}, L={row['n_ids']} {row['ids']} ids after compact's capacity "
+            f"{capacity}: {dropped} unique ids dropped, {touched} touched rows, bit for bit the plain version")
+    if timed:
+        work = packed.clone()
+        group = RowAdamPacked(work, layout.rects, bf16=bf16)
+
+        def call():
+            group(ids, grads, denoms, lr)
+
+        row["ms"] = cuda_ms(call)
+        row["device_ms"] = queued_ms(call)
+        row["plain_ms"] = cuda_ms(lambda: plain(work, layout.rects, ids, grads, denoms, lr))
+        param = torch.nn.Parameter(torch.randn(layout.total_rows, layout.w, device="cuda"))
+        sparse_adam = torch.optim.SparseAdam([param], lr=lr)
+        coo = torch.sparse_coo_tensor(ids[None], grads, param.shape)
+
+        def library():
+            param.grad = coo
+            sparse_adam.step()
+
+        row["library_ms"] = cuda_ms(library)
+        row["bound_ms"], row["bound_by"] = packed_bound(touched, layout.w, row["n_ids"], bf16)
+        log("layouts", f"{name} {row['shape']} ({row['dtype']}), L={row['n_ids']} {row['ids']} ids, {touched} "
+            f"touched rows: bit for bit the plain version; a call {row['ms'] * 1e3:.2f} us, on the device "
+            f"{row['device_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, SparseAdam "
+            f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}")
+    return row
+
+
+def train_layout(layout, seed, root_dir):
+    """mf_default.json (sparse_optim true) under ``layout`` at
+    MF_SPARSE_EPOCHS: one packed launch a step and nothing else, best valid
+    and test ndcg@10 in the JAX band, examples/s beside phase 3's. Returns
+    (the recommender, the kernels' counts of its train())."""
+    phase = f"{layout}-train"
+    zero_kernel_counts()
+    rec, result, _, res = train_mf(phase, seed, root_dir, sparse_optim=True, row_update=layout,
+                                   max_epoch=MF_SPARSE_EPOCHS)
+    counts = kernel_counts()
+    kernel = "fused_rowadam_packed_bf16" if layout == "unified_bf16" else "fused_rowadam_packed"
+    steps = len(rec.engine.bookkeeper.history) * rec.engine.epoch_fn.num_batches
+    check_launches(kernel, phase, counts[kernel], steps)
+    if any(v for k, v in counts.items() if k != kernel):
+        fail(f"{phase}: launched {counts}; the path runs {kernel} alone")
+    band = layout_band(layout)
+    rate, fused = median_rate(phase), median_rate("mf-sparse")
+    log(phase, f"(cap {MF_SPARSE_EPOCHS} epochs) "
+        + in_band("best valid ndcg@10", result["valid_metric"], band["valid"]) + "; "
+        + in_band("test ndcg@10", res["ndcg@10"], band["test"])
+        + f"; examples/s {rate:.1f} against {fused:.1f} under \"fused\" (phase 3, this call): {rate / fused:.3f}x")
+    return rec, counts
+
+
+def compact_drops(seed, root_dir, default_rec):
+    """"compact" at COMPACT_STARVED drops rows, counts them and warns once an
+    epoch; at its default capacity (``default_rec``'s training) it drops
+    JAX_COMPACT_DROPPED. Returns the kernels' counts of the starved run."""
+    phase = "compact-starved"
+    trainer = default_rec.engine.epoch_fn
+    dropped = int(trainer.dropped)
+    if dropped != JAX_COMPACT_DROPPED:
+        fail(f"compact-train: dropped {dropped} rows at the default capacity {trainer.compact_capacity}, the JAX "
+             f"package {JAX_COMPACT_DROPPED}")
+    log("compact-train", f"default capacity {trainer.compact_capacity} of {3 * trainer.batch_size} ids a step "
+        f"(the JAX package's estimate): dropped {dropped} rows, as the JAX package's seed 0")
+    rec, engine = built_engine(MatrixFactorization(mf_config(seed, root_dir, sparse_optim=True, row_update="compact",
+                                                             max_epoch=1)), mf_split())
+    engine.epoch_fn.compact_capacity = COMPACT_STARVED
+    zero_kernel_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        engine.train(verbose=False)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    warned = out.getvalue().count("WARNING: sharded-sparse bucketed exchange dropped")
+    dropped = int(engine.epoch_fn.dropped)
+    if not dropped or warned != 1:
+        fail(f"{phase}: capacity {COMPACT_STARVED}: dropped {dropped} rows, {warned} warnings in 1 epoch")
+    check_launches("fused_rowadam_packed", phase, counts["fused_rowadam_packed"], engine.epoch_fn.num_batches)
+    log(phase, f"capacity {COMPACT_STARVED}: 1 epoch dropped {dropped} gradient rows "
+        f"({dropped / engine.epoch_fn.num_batches:.1f} a step), counted in state[\"dropped\"] and warned once")
+    return counts
+
+
+def packed_state_memory(seed):
+    """The optimizer state's device bytes at PACKED_SCALE's tables under
+    "unified" and "unified_bf16": the packed array (and the bfloat16 form's
+    float32 bias tables and moments), the memory held while packed against
+    before (torch.cuda.memory_allocated) and the peak of the packing
+    (torch.cuda.max_memory_allocated). Returns {layout: bytes}."""
+    n_users, n_items, d = PACKED_SCALE["n_users"], PACKED_SCALE["n_items"], PACKED_SCALE["emb_dim"]
+    out = {}
+    for layout in ("unified", "unified_bf16"):
+        model = MF({"emb_dim": d, "loss": "bpr"}, n_users, n_items, device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        arrays = types.SimpleNamespace(users=np.arange(1), items=np.arange(1))
+        trainer = SparseEpochTrainer(model, arrays, 1, None, 0.05, None, row_update=layout)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with trainer._packed_epoch():
+            torch.cuda.synchronize()
+            held, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+            state = trainer._packed.numel() * trainer._packed.element_size()
+            if layout == "unified_bf16":
+                state += sum(3 * p.numel() * 4 for p in trainer.tables.values() if p.dim() == 1)
+        out[layout] = state
+        log("layouts", f"{layout} at {n_users:,} x {d} users, {n_items:,} items: optimizer state (tables and "
+            f"moments) {state / 2**20:.1f} MiB; device memory {before / 2**20:.1f} MiB before packing, "
+            f"{held / 2**20:.1f} MiB while packed, peak of the packing {peak / 2**20:.1f} MiB")
+        del model, trainer
+        torch.cuda.empty_cache()
+    log("layouts", f"unified_bf16's optimizer state over unified's: {out['unified_bf16'] / out['unified']:.4f}")
+    return out
+
+
+def row_layouts_phase(seed, root_dir):
+    """Phase 40. Returns (the two packed entry points' rows by shape, the
+    kernels' counts by path)."""
+    t0 = time.perf_counter()
+    rows = {}
+    for bf16 in (False, True):
+        name = "fused_rowadam_packed_bf16" if bf16 else "fused_rowadam_packed"
+        rows[name] = {"mf_step": compare_packed(bf16, PACKED_MF_STEP, seed),
+                      "table_scale": compare_packed(bf16, PACKED_SCALE, seed + 1)}
+    counts, recs = {}, {}
+    for layout in LAYOUTS:
+        recs[layout], counts[f"{layout}-train"] = train_layout(layout, seed, root_dir)
+    trainer = recs["compact"].engine.epoch_fn
+    if trainer.batch_size != PACKED_MF_STEP["batch"]:
+        fail(f"compact-train: batch {trainer.batch_size}, the packed comparisons' MF step {PACKED_MF_STEP['batch']}")
+    for capacity in (trainer.compact_capacity, COMPACT_STARVED):
+        compare_packed(False, PACKED_MF_STEP, seed, timed=False, capacity=capacity)
+    counts["compact-starved"] = compact_drops(seed, root_dir, recs["compact"])
+    del recs
+    packed_state_memory(seed)
+    log("layouts", f"phase 40 took {time.perf_counter() - t0:.2f} s")
+    return rows, counts
+
+
+def packed_entry(name, rows, launches):
+    """The kernels line's entry of one packed entry point: MF's step as its
+    headline shape, the table-scale step beside it."""
+    head = rows["mf_step"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "beta_recsys_tpu_torch/csrc/rowadam.cu",
+        "replaces": "beta_recsys_tpu/ops/pallas/rowadam.py:53",
+        "layout_code": "beta_recsys_tpu/core/sparse_optim.py:380",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "shape",
+                                "dtype")},
+        "timed": {key: {k: r[k] for k in ("shape", "n_ids", "ids", "touched_rows", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")} for key, r in rows.items()},
+    }
+
+
 PROFILE_GRAPH = "graph-models"  # phases 20-22's profiles
 PROFILE_CAPPED = "capped-models"  # phases 23-25's profiles
 PROFILE_SSL = "ssl-models"  # phases 26-27's profiles
@@ -4422,6 +4727,8 @@ def main():
                         help="run only the ring kernel's checks and times (11-12)")
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the four kernels and run only the dense mesh phase (37)")
+    parser.add_argument("--layouts-only", action="store_true",
+                        help="build the rowadam kernels and run only the row layouts phase (40) after phase 3")
     parser.add_argument("--profile", nargs="+", choices=PROFILES,
                         help="profile phases 20-22, 23-25, 26-27, 28-30 and/or 31-33 in this process alone (the "
                              "main run runs all five in one child)")
@@ -4445,7 +4752,7 @@ def main():
     t0 = time.perf_counter()
     mark("1 build")
     sharded_only = args.sharded_only or args.ring_only
-    built = _build.build_all(["ring_allgather"] if sharded_only
+    built = _build.build_all(["ring_allgather"] if sharded_only else ["rowadam"] if args.layouts_only
                              else ["flash_attention_fwd", "flash_attention_bwd", "rowadam", "ring_allgather"])
     wall = time.perf_counter() - t0
     for name, (lib, secs, report) in built.items():
@@ -4459,6 +4766,12 @@ def main():
     if args.mesh_only:
         with tempfile.TemporaryDirectory() as root_dir:
             dense_mesh_phases(args.seed, root_dir)
+        return 0
+    if args.layouts_only:  # phase 3's rate is the layouts' yardstick
+        with tempfile.TemporaryDirectory() as root_dir:
+            mf_sparse_training(args.seed, root_dir)
+            row_layouts_phase(args.seed, root_dir)
+        log("time", "seconds: " + json.dumps({"total": round(time.perf_counter() - T0, 2)}))
         return 0
     if sharded_only:
         with tempfile.TemporaryDirectory() as root_dir:
@@ -4567,15 +4880,23 @@ def main():
         graph_counts.update(bf16_counts)
         mark("39 raw-file adapters")
         graph_counts.update(raw_adapters_phase(args.seed, root_dir))
+        mark("40 row layouts")
+        packed_rows, layout_counts = row_layouts_phase(args.seed, root_dir)
+        graph_counts.update(layout_counts)
         mark("profiles of 20-33 (one child)")
         profiled_in_child(PROFILES, args.seed)
         mark()
     log("time", "seconds by phase: " + json.dumps(PHASE_SECONDS))
-    for path, counts in graph_counts.items():  # phases 17-39: 0 but 34's flash, 36's, 38's and 39's fused_rowadam, 37's
+    # Phases 17-40: 0 but 34's flash, 36's, 38's and 39's fused_rowadam, 37's
+    # and 40's packed entry points.
+    packed_launches = {"fused_rowadam_packed": {}, "fused_rowadam_packed_bf16": {}}
+    for path, counts in graph_counts.items():
         launches[path] = counts["flash_causal_attention_fwd"]
         bwd_launches[path] = counts["flash_causal_attention_bwd"]
         adam_launches[path] = counts["fused_rowadam"]
         ring_launches[path] = counts["ring_allgather"]
+        for name, by_path in packed_launches.items():
+            by_path[path] = counts[name]
     for path, counts in train_counts.items():
         launches[f"{path}/steps"] = counts["steps"]
         if "eval" in counts:
@@ -4664,7 +4985,8 @@ def main():
         "timed": {key: {k: rowadam_rows[key][k] for k in ("shape", "n_ids", "ids", "touched_rows", "ms", "device_ms",
                                                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
                   for key in ("user_emb", "item_emb", "table_scale")},
-    }, ring_entry(ring_rows, ring_launches)]
+    }, *(packed_entry(name, packed_rows[name], by_path) for name, by_path in packed_launches.items()),
+        ring_entry(ring_rows, ring_launches)]
     finish(smi, kernels)
     return 0
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """The JAX package's MF + BPR lazy-Adam band on the structured synthetic split.
 
-    JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py [--compute_dtype bfloat16]
+    JAX_PLATFORMS=cpu python port_tools/jax_mf_band.py [--compute_dtype bfloat16] [--row_update unified_bf16]
 
 Trains ``beta_recsys_tpu``'s MatrixFactorization from
 ``configs/mf_default.json`` with ``sparse_optim`` true and ``row_update``
-"xla" (the arithmetic of "fused", ``tests/test_rowadam_kernel.py``) on
+"xla" (the arithmetic of "fused", ``tests/test_rowadam_kernel.py``; with
+``--row_update``, that layout: "unified_bf16" follows its own trajectory,
+its moments rounded to bfloat16) on
 ``parity_runs/datasets/synthetic_structured`` (leave-one-out, 100 negatives,
 one evaluation copy) once for each of seeds 0-9, with early stop (with
 ``--compute_dtype``, the model's compute dtype: bfloat16 mixed precision),
 and prints
-each seed's best valid ndcg@10, best epoch, epochs run, test ndcg@10 and
-per-epoch valid and test ndcg@10, then the mean and the sample standard
+each seed's best valid ndcg@10, best epoch, epochs run, test ndcg@10, the
+lazy-Adam state's dropped count (the "compact" layout's rows past its
+capacity) and per-epoch valid and test ndcg@10, then the mean and the sample standard
 deviation (ddof 1) of the best valid and the test ndcg@10 over the whole
 run and read at each cap of ``CAPS`` (the best valid within the cap's
 epochs and the test at that epoch, which for MF is test()'s).
@@ -32,7 +35,7 @@ SPLIT = os.path.join(
     REPO, "parity_runs/datasets/synthetic_structured/processed/leave_one_out/full_n_neg_100"
 )
 SEEDS = range(10)
-CAPS = (10, 15, 20, 30, 40)
+CAPS = (5, 10, 15, 20, 30, 40)
 
 
 def summarize(runs):
@@ -57,7 +60,9 @@ def main():
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--compute_dtype", default=None, help="e.g. bfloat16 (default: float32 throughout)")
-    compute_dtype = parser.parse_args().compute_dtype
+    parser.add_argument("--row_update", default="xla", help="the lazy-Adam row layout (default: xla)")
+    args = parser.parse_args()
+    compute_dtype, row_update = args.compute_dtype, args.row_update
     sys.path.insert(0, REPO)
     import jax
 
@@ -74,7 +79,7 @@ def main():
             cfg = load_config(os.path.join(REPO, "configs/mf_default.json")).replace(
                 system={"root_dir": root, "seed": seed},
                 dataset={"dataset": "synthetic_structured", "n_test": 1},
-                model={"sparse_optim": True, "row_update": "xla",
+                model={"sparse_optim": True, "row_update": row_update,
                        **({"compute_dtype": compute_dtype} if compute_dtype else {})},
             )
             rec = MatrixFactorization(cfg)
@@ -85,12 +90,13 @@ def main():
                 "best_epoch": result["best_epoch"],
                 "epochs_run": len(history),
                 "test_ndcg@10": rec.test()["ndcg@10"], "train_s": result["run_time"],
+                "dropped": int(rec.engine.opt_state[0].get("dropped", 0)),
                 "valid_curve": [h["valid"]["ndcg@10"] for h in history],
                 "test_curve": [h["test"].get("ndcg@10") for h in history],
             }
             runs.append(run)
             print(json.dumps(run), flush=True)
-    print(json.dumps({"compute_dtype": compute_dtype, "run": summarize(runs),
+    print(json.dumps({"compute_dtype": compute_dtype, "row_update": row_update, "run": summarize(runs),
                       **{f"cap_{cap}": summarize([at_cap(r, cap) for r in runs]) for cap in CAPS}}))
 
 

@@ -168,6 +168,18 @@ truth = dict(col_user=np.array([0, 0, 1]), col_item=np.array([1, 2, 0]), col_rat
 pred = dict(col_user=np.array([0, 0, 1]), col_item=np.array([1, 2, 0]), col_prediction=np.array([0.9, 0.1, 0.5]))
 for fn in evaluation.METRIC_FNS.values():
     fn(truth, pred)
+from types import SimpleNamespace
+from beta_recsys_tpu_torch.core.sparse_optim import SparseEpochTrainer
+from beta_recsys_tpu_torch.utils.common import DictToObject, normalized_adj_single
+for layout in ("unified", "compact", "unified_bf16"):
+    trainer = SparseEpochTrainer(mf, SimpleNamespace(users=np.arange(4), items=np.arange(4)), 2, None, 0.05,
+                                 torch.optim.Adam([mf.global_bias], lr=0.05), row_update=layout)
+    trainer.run_batches(*(torch.tensor([[0, 1]]) for _ in range(3)))
+normalized_adj_single(csr)
+DictToObject(dict(a=dict(b=1)))
+for bf16 in (False, True):
+    chip_smoke.packed_inputs(4, 5, 2, 3, True, 0, bf16, device="cpu")
+    chip_smoke.packed_bound(3, 2, 9, bf16)
 print(len(names))
 """
 

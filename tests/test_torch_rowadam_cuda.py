@@ -1,7 +1,10 @@
 """On a card: the ``fused_rowadam`` CUDA kernel against its plain version,
 for one table and for a group of tables in one launch, ids outside the
-table left unwritten, and the segment dedup repeating bit for bit. Imports nothing of JAX, so it
-runs on the card's machine:
+table left unwritten, and the segment dedup repeating bit for bit; the
+packed entry points (``fused_rowadam_packed``, ``fused_rowadam_packed_bf16``)
+against their plain versions bit for bit, and each packed layout's trainer
+launching one kernel a step. Imports nothing of JAX, so it runs on the
+card's machine:
 
     python3 -m pytest --noconftest tests/test_torch_rowadam_cuda.py -q
 
@@ -19,10 +22,16 @@ from beta_recsys_tpu_torch.core.sparse_optim import SparseEpochTrainer, _segment
 from beta_recsys_tpu_torch.models.mf import MF
 from beta_recsys_tpu_torch.ops.kernels.rowadam import (
     bias_corrections,
+    bias_denominators,
     fused_rowadam,
+    fused_rowadam_packed,
+    fused_rowadam_packed_bf16,
+    fused_rowadam_packed_bf16_reference,
+    fused_rowadam_packed_reference,
     fused_rowadam_reference,
     fused_rowadam_tables,
     fused_rowadam_tables_reference,
+    repack16,
 )
 
 # As tests/test_rowadam_kernel.py holds the JAX kernel; the card's kernel
@@ -133,3 +142,69 @@ def test_cuda_auto_row_update_takes_the_kernel():
     arrays = types.SimpleNamespace(users=np.arange(10), items=np.arange(10))
     trainer = SparseEpochTrainer(model, arrays, 4, None, 0.05, None, row_update="auto")
     assert trainer.row_update == "fused"
+
+
+# MF's packed layout at configs/mf_default.json (emb 64 + a bias column): the
+# user role's rows 0-942, the items' 943-2624; the bf16 form holds the two
+# embeddings alone. And a layout whose roles differ in their columns.
+MF_RECTS = [(0, 943, 0, 64), (0, 943, 64, 1), (943, 1682, 0, 64), (943, 1682, 64, 1)]
+MF_RECTS16 = [(0, 943, 0, 64), (943, 1682, 0, 64)]
+ROLE_RECTS = [(0, 100, 0, 8), (0, 100, 8, 3), (100, 50, 0, 1), (100, 50, 1, 10)]
+
+
+def _packed_case(total_rows, w, n_ids, seed, bf16=False):
+    """(packed, sorted ids with duplicates and one id past the table, their
+    deduplicated gradients) on the card; every 7th gradient row zero."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(total_rows, w, generator=gen, device="cuda")
+    m = 0.1 * torch.randn(total_rows, w, generator=gen, device="cuda")
+    v = (0.1 * torch.randn(total_rows, w, generator=gen, device="cuda")).abs()
+    packed = repack16(p, m, v) if bf16 else torch.cat([p, m, v], dim=1)
+    ids = torch.randint(0, total_rows, (n_ids,), generator=gen, device="cuda")
+    ids[-1] = total_rows + 5
+    grads = torch.randn(n_ids, w, generator=gen, device="cuda")
+    grads[::7] = 0.0
+    ids_s, g_d = _segment_dedup(ids, grads)
+    return packed.contiguous(), ids_s, g_d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rects,total_rows,w,n_ids", [
+    (MF_RECTS, 2625, 65, 1200), (ROLE_RECTS, 150, 11, 300),
+], ids=["mf-step", "role-indicator"])
+def test_cuda_packed_kernels_match_plain_versions_bit_for_bit(bf16, rects, total_rows, w, n_ids):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if bf16:
+        rects = [r for r in rects if r[3] > 1]
+    packed, ids, grads = _packed_case(total_rows, w, n_ids, seed=w, bf16=bf16)
+    denoms = bias_denominators(3)
+    plain = fused_rowadam_packed_bf16_reference if bf16 else fused_rowadam_packed_reference
+    kernel = fused_rowadam_packed_bf16 if bf16 else fused_rowadam_packed
+    want = plain(packed.clone(), rects, ids, grads, denoms, 0.05)
+    before = kernel.launches
+    got = kernel(packed.clone(), rects, ids, grads, denoms, 0.05)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_update", ["unified", "compact", "unified_bf16"])
+def test_cuda_packed_layouts_launch_once_a_step(row_update):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = MF({"emb_dim": 8, "loss": "bpr"}, 10, 12, device="cuda").init_weights(torch.Generator().manual_seed(0))
+    arrays = types.SimpleNamespace(users=np.arange(10), items=np.arange(10))
+    trainer = SparseEpochTrainer(model, arrays, 4, None, 0.05, None, row_update=row_update)
+    trainer.dense_optimizer = torch.optim.Adam(list(trainer.dense.values()), lr=0.05)
+    kernel = fused_rowadam_packed_bf16 if row_update == "unified_bf16" else fused_rowadam_packed
+    before, item_emb = kernel.launches, model.item_emb.detach().clone()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    users, pos, neg = (torch.randint(0, n, (3, 4), generator=gen, device="cuda") for n in (10, 12, 12))
+    assert torch.isfinite(trainer.run_batches(users, pos, neg))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 3
+    assert not torch.equal(model.item_emb.detach(), item_emb)

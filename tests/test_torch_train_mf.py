@@ -1,7 +1,7 @@
 """MF training in the port against the JAX package: one epoch of the dense
 trainer and of the lazy-Adam trainer ("xla", and "fused" through its plain
-version) on batches formed by the JAX code give the JAX parameters and
-moments; the sparse step count carries across epochs; and end to end,
+version; the packed layouts in tests/test_torch_row_layouts.py) on batches
+formed by the JAX code give the JAX parameters and moments; the sparse step count carries across epochs; and end to end,
 ``MatrixFactorization(cfg, device="cpu").train(data)`` learns a structured
 split, and its best checkpoint loads in the JAX package with equal test
 metrics."""
@@ -201,11 +201,24 @@ def test_auto_row_update_is_xla_on_the_cpu(split):
 
 
 def test_tpu_row_layouts_and_other_batch_kinds_raise(split):
+    """The JAX package's packed row layouts train (one step each here; held
+    to the JAX package in tests/test_torch_row_layouts.py); an unknown
+    ``row_update`` raises."""
     data, _ = _both_data(split)
     cfg, _, _, ours = _models(data)
+    tables = ours.row_tables()
+    gen = torch.Generator().manual_seed(0)
     for layout in ("unified", "compact", "unified_bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseEpochTrainer(ours, data.train_arrays(), BATCH, None, LR, None, row_update=layout)
+        dense = [p for name, p in ours.named_parameters() if name not in tables]
+        trainer = SparseEpochTrainer(ours, data.train_arrays(), BATCH, None, LR, make_optimizer(cfg, dense),
+                                     row_update=layout)
+        before = ours.item_emb.detach().clone()
+        users, pos, neg = (torch.randint(0, n, (BATCH,), generator=gen)
+                           for n in (data.n_users, data.n_items, data.n_items))
+        assert torch.isfinite(trainer.step(users, pos, neg)) and trainer.state["step"] == 1
+        assert not torch.equal(ours.item_emb.detach(), before) and trainer._packed is None
+    with pytest.raises(ValueError, match="unknown row_update 'pallas'"):
+        SparseEpochTrainer(ours, data.train_arrays(), BATCH, None, LR, None, row_update="pallas")
     # MF + BCE is pointwise and trains (tests/test_torch_train_pointwise.py),
     # multineg batches and rmsprop too (tests/test_torch_train_multineg.py);
     # a batch kind or an optimizer the JAX package lacks raises as it does there.
