@@ -350,7 +350,12 @@ class RowAdamPacked:
     n_rows, col0, width) inside it, all checked once, here. A call
     ``group(ids, grads, denoms, lr)`` takes the sorted, deduplicated packed
     ids (L,) int64 and their gradients (L, w) float32 and the bias
-    denominators (``bias_denominators``). Counts its kernel launches in
+    denominators (``bias_denominators``). The kernel relies on that
+    contract: every non-first occurrence of an id carries an all-zero
+    gradient row (``core/sparse_optim._segment_dedup``, then
+    ``compact_rows``), so it never reads a row whose id equals its
+    predecessor's; a nonzero gradient there would be dropped, where the
+    plain versions would add it. Counts its kernel launches in
     ``fused_rowadam_packed.launches`` or ``fused_rowadam_packed_bf16.launches``."""
 
     def __init__(self, packed, tables, bf16=False, b1=0.9, b2=0.999, eps=1e-8):

@@ -252,9 +252,14 @@ Phases, each printed with the seconds elapsed:
      MF's step (943 and 1,682 rows of emb 64 and a bias, mf_default.json's
      B 400, so L 1,200) and at table scale (1,000,000 users and 100,000
      items, B 16,384, zipf ids), with times (a call, the device's, the plain
-     version, one torch.optim.SparseAdam step) and bounds, and the float32
-     one again at MF's step after "compact"'s cut to its default capacity
-     and to capacity 16; mf_default.json (sparse_optim
+     version, one torch.optim.SparseAdam step) and two bounds (every id's
+     gradient row read, and the bytes of a write that reads no duplicate's
+     row) with the device time's share of each, and the float32 one again
+     after "compact"'s cut at MF's step to its default capacity and to
+     capacity 16, and at table scale to PACKED_SCALE_CAPACITY, and both
+     at table scale with uniform ids (PACKED_SCALE_UNIFORM: ~44,000
+     distinct ids, ~10 first occurrences a warp of the kernel's grid);
+     mf_default.json (sparse_optim
      true) under "unified", "compact" and "unified_bf16" at
      MF_SPARSE_EPOCHS: one packed launch a step, best valid and test
      ndcg@10 inside the JAX band of the layout, examples/s beside phase
@@ -4379,6 +4384,14 @@ COMPACT_STARVED = 16  # a capacity far below a step's ~1,000 unique ids: every s
 # tables, zipf ids, B 16,384).
 PACKED_MF_STEP = {"n_users": 943, "n_items": 1682, "emb_dim": 64, "batch": 400, "zipf": False}
 PACKED_SCALE = {"n_users": 1_000_000, "n_items": 100_000, "emb_dim": 64, "batch": 16_384, "zipf": True}
+# "compact"'s cut at table scale: below the ~11,700 distinct ids of a zipf
+# step (11,671 at seed 1, phase 40's), so ~3,500 first occurrences lose
+# their gradient.
+PACKED_SCALE_CAPACITY = 8192
+# The same step with uniform ids (bench.py's bench_sparse_large default):
+# nearly every id distinct, so each warp of the packed kernel stages its
+# rows in more than one round.
+PACKED_SCALE_UNIFORM = {**PACKED_SCALE, "zipf": False}
 
 
 def layout_band(layout):
@@ -4434,6 +4447,20 @@ def packed_bound(touched, w, n_ids, bf16):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def packed_read_bound(first, touched, w, n_ids, bf16):
+    """The bound of what a write needs that reads no duplicate's gradient
+    row (the call's contract makes them zero): every id, the ``first``
+    occurrences' gradient rows and each touched row read and written, over
+    the memory rate (bytes bind it at every shape here)."""
+    row_bytes = 2 * 4 * w * 2 if bf16 else 6 * w * 4
+    return (touched * row_bytes + first * w * 4 + n_ids * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def first_occurrences(ids):
+    """The number of distinct ids in a sorted id array."""
+    return int((ids[1:] != ids[:-1]).sum()) + int(ids.numel() > 0)
+
+
 def compare_packed(bf16, shape, seed, timed=True, capacity=None):
     """One packed entry point against its plain version on one MF step's
     inputs, bit for bit, after "compact"'s cut to ``capacity`` unique ids
@@ -4469,8 +4496,10 @@ def compare_packed(bf16, shape, seed, timed=True, capacity=None):
         fail(f"{name} wrote nothing: {row}")
     if capacity is not None:
         row.update(capacity=capacity, dropped=dropped)
-        log("layouts", f"{name} {row['shape']}, L={row['n_ids']} {row['ids']} ids after compact's capacity "
-            f"{capacity}: {dropped} unique ids dropped, {touched} touched rows, bit for bit the plain version")
+    if not timed:
+        cut = "," if capacity is None else f" after compact's capacity {capacity}: {dropped} unique ids dropped,"
+        log("layouts", f"{name} {row['shape']}, L={row['n_ids']} {row['ids']} ids{cut} {first_occurrences(ids)} "
+            f"first occurrences, {touched} touched rows, bit for bit the plain version")
     if timed:
         work = packed.clone()
         group = RowAdamPacked(work, layout.rects, bf16=bf16)
@@ -4491,10 +4520,16 @@ def compare_packed(bf16, shape, seed, timed=True, capacity=None):
 
         row["library_ms"] = cuda_ms(library)
         row["bound_ms"], row["bound_by"] = packed_bound(touched, layout.w, row["n_ids"], bf16)
-        log("layouts", f"{name} {row['shape']} ({row['dtype']}), L={row['n_ids']} {row['ids']} ids, {touched} "
-            f"touched rows: bit for bit the plain version; a call {row['ms'] * 1e3:.2f} us, on the device "
-            f"{row['device_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, SparseAdam "
-            f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}")
+        row["first_rows"] = first_occurrences(ids)
+        row["read_bound_ms"] = packed_read_bound(row["first_rows"], touched, layout.w, row["n_ids"], bf16)
+        log("layouts", f"{name} {row['shape']} ({row['dtype']}), L={row['n_ids']} {row['ids']} ids, "
+            f"{row['first_rows']} first occurrences, {touched} touched rows: bit for bit the plain version; a call "
+            f"{row['ms'] * 1e3:.2f} us, on the device {row['device_ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, SparseAdam {row['library_ms'] * 1e3:.2f} us; bound "
+            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} (device share "
+            f"{row['bound_ms'] / row['device_ms']:.3f}), of what a write that skips duplicates reads "
+            f"{row['read_bound_ms'] * 1e3:.3f} us (share "
+            f"{row['read_bound_ms'] / row['device_ms']:.3f})")
     return row
 
 
@@ -4602,6 +4637,9 @@ def row_layouts_phase(seed, root_dir):
         fail(f"compact-train: batch {trainer.batch_size}, the packed comparisons' MF step {PACKED_MF_STEP['batch']}")
     for capacity in (trainer.compact_capacity, COMPACT_STARVED):
         compare_packed(False, PACKED_MF_STEP, seed, timed=False, capacity=capacity)
+    compare_packed(False, PACKED_SCALE, seed + 1, timed=False, capacity=PACKED_SCALE_CAPACITY)
+    for bf16 in (False, True):
+        compare_packed(bf16, PACKED_SCALE_UNIFORM, seed + 1, timed=False)
     counts["compact-starved"] = compact_drops(seed, root_dir, recs["compact"])
     del recs
     packed_state_memory(seed)
@@ -4624,8 +4662,9 @@ def packed_entry(name, rows, launches):
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "shape",
                                 "dtype")},
-        "timed": {key: {k: r[k] for k in ("shape", "n_ids", "ids", "touched_rows", "ms", "device_ms", "plain_ms",
-                                          "bound_ms", "bound_by", "library_ms")} for key, r in rows.items()},
+        "timed": {key: {k: r[k] for k in ("shape", "n_ids", "ids", "first_rows", "touched_rows", "ms", "device_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "read_bound_ms", "library_ms")}
+                  for key, r in rows.items()},
     }
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the flash-attention forward and backward, ``fused_rowadam`` and the
-all-gather of one checkout of the port.
+"""Time the flash-attention forward and backward, ``fused_rowadam``, the
+packed row write and the all-gather of one checkout of the port.
 
-    python3 port_tools/time_kernels.py <checkout root> <label> [fwd] [flash] [rowadam] [ring] [across]
+    python3 port_tools/time_kernels.py <checkout root> <label> [fwd] [flash] [rowadam] [packed] [ring] [across]
 
 Needs a GPU. Imports ``beta_recsys_tpu_torch`` from ``<checkout root>``
 (building its kernels there, in ``build/torch_kernels/``) and the timers of
@@ -20,10 +20,10 @@ the card, and for each shape
 - ``issue_ms`` (across cards): the host's time to issue a call while every
   card sleeps, so that no call waits on a device;
 - a checksum of the outputs, which two checkouts must share up to float
-  rounding (bit for bit for the all-gather).
+  rounding (bit for bit for the all-gather and the packed write).
 
-Groups (``fwd``, ``flash``, ``rowadam``, ``ring`` and ``across`` when none
-is named):
+Groups (``fwd``, ``flash``, ``rowadam``, ``packed``, ``ring`` and ``across``
+when none is named):
 
 - ``fwd``: the forward at the serving shapes 1886 x 100 x 32 and
   8192 x 200 x 32 (rate 0) and the training shapes 256 x 100 x 32 (rates
@@ -37,6 +37,17 @@ is named):
   with ``RowAdamTables`` makes one grouped call a step through a group
   built beforehand, as its trainer does; an older one calls
   ``fused_rowadam`` once a table;
+- ``packed``: ``fused_rowadam_packed`` and ``fused_rowadam_packed_bf16``
+  through a ``RowAdamPacked`` built beforehand, as the trainer calls them,
+  on ``chip_smoke.packed_inputs`` at MF's step (``PACKED_MF_STEP``: L 1,200
+  uniform ids), at table scale (``PACKED_SCALE``: 1,100,000 rows, L 49,152
+  zipf ids), at table scale after ``compact_rows`` at
+  ``PACKED_SCALE_CAPACITY``, below the step's distinct ids, and at table
+  scale with uniform ids (``PACKED_SCALE_UNIFORM``); each with its
+  ids, first occurrences and touched rows, its two bounds
+  (``chip_smoke.packed_bound``, ``packed_read_bound``) and, after one call on
+  a fresh copy, the SHA-256 of the rows at its ids and the sum of the whole
+  array's 16-bit words;
 - ``epochs`` (only when named): training epochs on the structured split
   through the checkout's trainers, the kernels' end-to-end effect: MF + BPR
   lazy Adam at ``configs/mf_default.json`` with row_update "fused" (6
@@ -56,6 +67,7 @@ directory ``.gitignore`` lists and run, in one call, parent, change, change,
 parent, each in its own process.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -68,7 +80,7 @@ sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup  # noqa: E402
+from beta_recsys_tpu_torch.core.sparse_optim import _segment_dedup, compact_rows  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels import rowadam  # noqa: E402
 from beta_recsys_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
     flash_causal_attention,
@@ -169,6 +181,45 @@ def rowadam_rows(out):
             "checksum": [float(x.double().abs().sum()) for t in fresh for x in t]}
 
 
+# (name, shape, seed, capacity): phase 40's inputs (chip_smoke.row_layouts_phase, seed 0).
+PACKED_CASES = (("mf-step", cs.PACKED_MF_STEP, 0, None), ("table-scale", cs.PACKED_SCALE, 1, None),
+                ("table-scale compact", cs.PACKED_SCALE, 1, cs.PACKED_SCALE_CAPACITY),
+                ("table-scale uniform", cs.PACKED_SCALE_UNIFORM, 1, None))
+
+
+def packed_rows(out):
+    """Device and call time of one packed write through a prebuilt
+    ``RowAdamPacked``, its bounds and the hash of one call's result."""
+    denoms, lr = rowadam.bias_denominators(3), 0.05
+    for bf16 in (False, True):
+        name = "fused_rowadam_packed_bf16" if bf16 else "fused_rowadam_packed"
+        counter = getattr(rowadam, name)
+        for case, shape, seed, capacity in PACKED_CASES:
+            layout, packed, ids, grads = cs.packed_inputs(**shape, seed=seed, bf16=bf16)
+            if capacity is not None:
+                grads, _ = compact_rows(ids, grads, capacity)
+            touched = int(rowadam.packed_touched(layout.rects, ids, grads).any(dim=1).sum())
+            first, n_ids = cs.first_occurrences(ids), int(ids.shape[0])
+            fresh = packed.clone()
+            launches = counter.launches
+            rowadam.RowAdamPacked(fresh, layout.rects, bf16=bf16)(ids, grads, denoms, lr)
+            torch.cuda.synchronize()
+            group = rowadam.RowAdamPacked(packed, layout.rects, bf16=bf16)
+
+            def call():
+                group(ids, grads, denoms, lr)
+
+            bound, _ = cs.packed_bound(touched, layout.w, n_ids, bf16)
+            out[f"{name} {case}"] = {
+                "n_ids": n_ids, "first_rows": first, "touched_rows": touched, "launches": counter.launches - launches,
+                "device_ms": cs.queued_ms(call), "call_ms": cs.cuda_ms(call), "bound_ms": bound,
+                "read_bound_ms": cs.packed_read_bound(first, touched, layout.w, n_ids, bf16),
+                "checksum": [hashlib.sha256(fresh[ids.unique()].cpu().numpy().tobytes()).hexdigest(),
+                             int(fresh.view(torch.int16).long().sum())]}
+            del layout, packed, fresh, group
+            torch.cuda.empty_cache()
+
+
 def epoch_rows(out):
     """Per-epoch rates of MF lazy-Adam and SASRec training (see the module
     docstring)."""
@@ -234,7 +285,7 @@ def ring_rows(out, gen, devices, key):
 
 
 def main():
-    groups = set(sys.argv[3:]) or {"fwd", "flash", "rowadam", "ring", "across"}
+    groups = set(sys.argv[3:]) or {"fwd", "flash", "rowadam", "packed", "ring", "across"}
     out = {"label": sys.argv[2], "card": cs.nvidia_smi_line()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "fwd" in groups:
@@ -243,6 +294,8 @@ def main():
         flash_rows(out, gen)
     if "rowadam" in groups:
         rowadam_rows(out)
+    if "packed" in groups:
+        packed_rows(out)
     if "epochs" in set(sys.argv[3:]):
         epoch_rows(out)
     if "ring" in groups:

@@ -115,6 +115,23 @@ def test_packed_bound(bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
+def test_packed_read_bound(bf16):
+    """What a write that skips duplicates reads: every id, the first
+    occurrences' gradient rows and the touched rows, read and written; never
+    above the bound that reads every gradient row."""
+    ms = chip_smoke.packed_read_bound(300, 250, 65, 768, bf16)
+    row_bytes = 4 * 65 * 2 * 2 if bf16 else 6 * 65 * 4
+    assert ms == pytest.approx((250 * row_bytes + 300 * 65 * 4 + 768 * 8) / 3.35e12 * 1e3)
+    assert ms < chip_smoke.packed_bound(250, 65, 768, bf16)[0]
+
+
+def test_first_occurrences():
+    assert chip_smoke.first_occurrences(torch.tensor([1, 1, 2, 5, 5, 5, 9])) == 4
+    assert chip_smoke.first_occurrences(torch.tensor([3])) == 1
+    assert chip_smoke.first_occurrences(torch.tensor([], dtype=torch.int64)) == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
 def test_packed_inputs_are_one_mf_step(bf16):
     """MF's packed layout (embeddings and, in float32, a bias column a role),
     B user ids and 2B item ids at their row offsets, sorted and deduplicated,
